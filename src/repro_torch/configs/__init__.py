@@ -1,0 +1,24 @@
+"""Per-architecture configs of the port (``--arch <id>``).
+
+Only qwen3-14b is ported; the other architectures of ``repro.configs``
+need block kinds that are queued in ROADMAP §1 (other architectures).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from .base import ArchSpec
+
+_MODULES = {"qwen3-14b": "qwen3_14b"}
+ALL = list(_MODULES)
+
+
+def get_spec(arch_id: str) -> ArchSpec:
+    if arch_id not in _MODULES:
+        raise KeyError(f"arch {arch_id!r} is not ported; ported: {ALL} "
+                       "(the rest are queued in ROADMAP §1)")
+    return importlib.import_module(f"{__name__}.{_MODULES[arch_id]}").SPEC
+
+
+__all__ = ["ALL", "ArchSpec", "get_spec"]
