@@ -22,8 +22,22 @@ Phases, in order; every check asserts and any failure exits non-zero:
   7. decide   200 netkv-full decisions through the netkv_score_cohort kernel
               over a 2048-instance pool, each within rtol 1e-5 of the NumPy
               minimum; launch count of netkv_score_cohort
-  8. one JSON line ``{"kernels": [...]}``
-  9. last line ``{"ok": true, "device": {...}}``
+  8. sweep    exp11's FULL grid (54 scenarios, 1400 steps of 0.01 s) through
+              ScenarioPlane(backend="kernel"): first waterfill_fast against
+              its plain version at the grid's shape, then the sweep twice
+              (waterfill_fast launched once a step; the second call's wall
+              and scenarios/s), sanity, and the summaries against the f64
+              backend="torch" sweep on the card
+  9. simulate run_sim on the 64-GPU cluster, netkv-full scored by
+              netkv_score_cohort, over a Mooncake chatbot trace (one row a
+              launch) and a same-arrival burst trace (cohorts of R > 1 rows):
+              on the card every RunMetrics field equals the CPU run's but the
+              host-clock decision latencies; each FlowPlane fixed point of
+              the card runs is recomputed by waterfill_progressive and held
+              to the plane's rates (rtol 1e-4); then waterfill_progressive
+              against its plain version on those tables
+ 10. one JSON line ``{"kernels": [...]}``
+ 11. last line ``{"ok": true, "device": {...}}``
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it fails.
@@ -52,13 +66,26 @@ REPLACES = {
     "kv_pack": "src/repro/kernels/kv_pack.py:21",
     "kv_unpack": "src/repro/kernels/kv_pack.py:51",
     "flash_decode": "src/repro/kernels/flash_decode.py:33",
+    "waterfill_progressive": "src/repro/kernels/waterfill.py:52",
+    "waterfill_fast": "src/repro/kernels/waterfill.py:182",
 }
 SOURCE = {
     "netkv_score_cohort": "src/repro_torch/csrc/netkv_score.cu",
     "kv_pack": "src/repro_torch/csrc/kv_pack.cu",
     "kv_unpack": "src/repro_torch/csrc/kv_pack.cu",
     "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+    "waterfill_progressive": "src/repro_torch/csrc/waterfill.cu",
+    "waterfill_fast": "src/repro_torch/csrc/waterfill.cu",
 }
+KERNELS = ("netkv_score_cohort", "kv_pack", "kv_unpack", "flash_decode",
+           "waterfill_progressive", "waterfill_fast")
+# The FULL grid of benchmarks/exp11_scenario_sweep.py (defined here: that
+# module imports the JAX package).
+EXP11 = dict(schedulers=("cla", "netkv-static", "netkv-full"), chunks=(None, 256, 1024),
+             nic_policies=("hash", "rail-affine"), seeds=3, warmup=2.0, measure=8.0,
+             drain=4.0, rps=12.0, background=0.25, dt=0.01)
+# TTFT summaries of the f32 kernel sweep against the f64 sweep, relative.
+SWEEP_RTOL = 0.02
 # flash_decode (rtol, atol) by dtype.  Kernel and plain version both sum in
 # f32 and round once to the output dtype, so in bf16 they may differ by one
 # rounding step of the output, at most 2^-7 of its magnitude; a kernel that
@@ -79,18 +106,38 @@ def ensure(ok, what) -> None:
 def device_time_ms(fn, iters: int) -> float:
     """Device milliseconds per call of ``fn``: the stream is held by a
     spin kernel while the host enqueues ``iters`` calls, so the events
-    bracket the device work back to back and not the host's enqueue rate."""
+    bracket the device work back to back and not the host's enqueue rate.
+    The spin lasts twice as long as an untimed enqueue of the calls took,
+    so a wrapper of many small ops is held too."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
+    torch.cuda._sleep(max(200_000_000, int(2 * enqueue_s * 2e9)))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_time_ms(fn, iters: int) -> float:
+    """Host-clock milliseconds per call of ``fn`` that ends in a synchronise:
+    for the plain water-filling loops, which read their loop condition back
+    every round and so cannot be enqueued ahead."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -399,8 +446,9 @@ def phase_serve():
     ensure(any(r.transfer_bytes < full_bytes for r in results), "no repeat prefix hit")
     steps = sum(w["decode_steps"] for w in cluster.walls)
     ensure(steps == len(results) * (workload["max_new"] - 1), ("decode steps", steps))
-    want_launches = {"flash_decode": cfg.n_layers * steps, "kv_pack": 2 * shipping,
-                     "kv_unpack": 2 * shipping, "netkv_score_cohort": 0}
+    want_launches = dict.fromkeys(build.LAUNCHES, 0) | {
+        "flash_decode": cfg.n_layers * steps, "kv_pack": 2 * shipping,
+        "kv_unpack": 2 * shipping}
     ensure(launches == want_launches, (launches, want_launches))
     for r, w in zip(results, cluster.walls):
         say(f"[serve] req{r.request_id}: decode@{r.decode_instance} tier{r.tier} "
@@ -420,6 +468,8 @@ def kernel_class(name: str) -> str:
         return "flash_decode"
     if "kv_pack" in low or "kv_unpack" in low:
         return "kv_pack"
+    if "waterfill" in low:
+        return "waterfill"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     return "other"
@@ -529,6 +579,293 @@ def phase_decide() -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+def exp11_grid():
+    from repro_torch.sim import ScenarioSpec
+
+    g = EXP11
+    return [ScenarioSpec(seed=seed, scheduler=sched, target_rps=g["rps"], warmup=g["warmup"],
+                         measure=g["measure"], drain=g["drain"], chunk_tokens=chunk,
+                         kv_streaming=chunk is not None, nic_policy=nic,
+                         background=g["background"])
+            for sched in g["schedulers"] for chunk in g["chunks"]
+            for nic in g["nic_policies"] for seed in range(g["seeds"])]
+
+
+def fast_inputs(plane, seed: int = 0):
+    """One sweep step's K6 inputs at the grid's shape: link capacities of
+    step 0, and per-request incidence rows gathered from the plane's path
+    tables at a random decode instance, under a random active mask."""
+    rng = np.random.default_rng(seed)
+    s, r = plane.arrival.shape
+    lt = plane._link_tier_c
+    l1 = plane.link_cap.shape[1] + 1
+    caps = plane.link_cap * (1.0 - plane.bg_util[:, lt]) * plane.bw_mult[:, 0][:, lt]
+    caps = np.concatenate([caps, np.full((s, 1), np.inf)], axis=1)
+    inc = (plane.path_table[..., None] == np.arange(l1)).sum(axis=3).astype(np.float32)
+    inst = rng.integers(0, plane.n_decode, (s, r))
+    nh = inc[np.arange(s)[:, None], plane.src_p, inst]
+    active = (rng.random((s, r)) < 0.6) & np.isfinite(plane.arrival)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in (caps.astype(np.float32), active, nh))
+
+
+def check_waterfill_fast(rows: dict, plane) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.waterfill import waterfill_fast
+
+    caps, active, nh = fast_inputs(plane)
+    s, f = active.shape
+    l1 = caps.shape[1]
+    got = waterfill_fast(caps, active, nh)
+    want = ref.waterfill_rates_fast_ref(caps, active, nh)
+    f64 = ref.waterfill_rates_fast_ref(caps.double(), active, nh.double())
+    ensure(torch.equal(torch.isinf(got), torch.isinf(want)), "waterfill_fast: inf pattern")
+    fin = torch.isfinite(want)
+    err = (got - want)[fin].abs()
+    rel = (err / want[fin].abs().clamp(min=1e-30)).max().item()
+    rel64 = ((got.double() - f64)[fin].abs() / f64[fin].abs().clamp(min=1e-30)).max().item()
+    ensure(rel <= 1e-4 and rel64 <= 1e-4, f"waterfill_fast rel err {rel} / f64 {rel64} > 1e-4")
+    ensure(bool((got[~active] == 0).all()), "waterfill_fast: inactive rows carry a rate")
+    say(f"[kernels] waterfill_fast S {s} x F {f} x L+1 {l1}: {int(active.sum())} active flows, "
+        f"max rel err {rel:.3g} vs plain f32, {rel64:.3g} vs f64 (rtol 1e-4)")
+    moved = caps.numel() * 4 + active.numel() + nh.numel() * 4 + got.numel() * 4
+    # Operations: at least one round's pass over the incidence table (a
+    # multiply and an add per entry for the used capacity).
+    b_ms, b_by = bound(moved, 2.0 * nh.numel(), torch.float32)
+    k_ms = device_time_ms(lambda: waterfill_fast(caps, active, nh), 200)
+    p_ms = wall_time_ms(lambda: ref.waterfill_rates_fast_ref(caps, active, nh), 10)
+    tr = traced(lambda: waterfill_fast(caps, active, nh), 20)
+    only = tr["by_class_ms"].get("waterfill", 0.0)
+    say(f"[kernels] waterfill_fast: {k_ms:.4f} ms a call on the device (kernel {only:.4f} ms, "
+        f"the wrapper's masking the rest), plain version {p_ms:.3f} ms wall")
+    rows["waterfill_fast"] = row("waterfill_fast", err.max().item(), k_ms, p_ms, None,
+                                 b_ms, b_by, shape=f"S {s} x F {f} x L+1 {l1} f32",
+                                 kernel_only_ms=only,
+                                 library="none: no single PyTorch call computes the fixed point")
+
+
+def phase_sweep(rows: dict) -> int:
+    """exp11's FULL grid on the card; returns waterfill_fast launches of the
+    second (timed) sweep."""
+    from repro_torch.kernels import build
+    from repro_torch.sim import ScenarioPlane
+
+    specs = exp11_grid()
+    t0 = time.perf_counter()
+    plane = ScenarioPlane(specs, dt=EXP11["dt"], backend="kernel", device="cuda")
+    prep_s = time.perf_counter() - t0
+    s, r = plane.arrival.shape
+    say(f"[sweep] exp11 FULL grid: {s} scenarios x {plane.n_steps} steps; R {r}, "
+        f"{plane.n_prefill}P+{plane.n_decode}D instances, {plane.link_cap.shape[1]} links "
+        f"+ pad; host prep {prep_s:.2f}s")
+    check_waterfill_fast(rows, plane)
+    walls, launches = [], []
+    for _ in range(2):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = plane.sweep(detail=True)
+        walls.append(time.perf_counter() - t0)
+        launches.append(build.LAUNCHES["waterfill_fast"])
+        ensure(launches[-1] == plane.n_steps, ("waterfill_fast launches", launches[-1]))
+        ensure(sum(build.LAUNCHES.values()) == launches[-1], ("other kernels", build.LAUNCHES))
+    for key in ("n_measured", "n_served", "ttft_mean", "ttft_p50", "ttft_p95", "ttft_p99",
+                "tbt_mean", "slo_attainment", "goodput_rps"):
+        ensure(out[key].shape == (s,), key)
+    ensure(bool(np.all(out["n_measured"] > 0)), "a scenario measured nothing")
+    ensure(bool(np.all(out["n_served"] <= out["n_measured"])), "served > measured")
+    served = out["n_served"] > 0
+    ensure(bool(np.all(np.isfinite(out["ttft_p50"][served]))), "non-finite p50")
+    att = out["slo_attainment"]
+    ensure(bool(np.all(((att >= 0.0) & (att <= 1.0)) | np.isnan(att))), "slo_attainment range")
+    say(f"[sweep] backend=kernel on the card: first call {walls[0]:.2f}s, steady second call "
+        f"{walls[1]:.2f}s = {s / walls[1]:.2f} scenarios/s; waterfill_fast launches "
+        f"{launches[1]} (= steps)")
+    plane64 = ScenarioPlane(specs, dt=EXP11["dt"], backend="torch", device="cuda")
+    t0 = time.perf_counter()
+    ref64 = plane64.sweep(detail=True)
+    wall64 = time.perf_counter() - t0
+    # The f32 kernel sums a link's used capacity in another order than the
+    # f64 loop, so a transfer may complete a step apart and move later
+    # admissions.  Held: the measured set is the same, and every per-
+    # scheduler TTFT summary agrees within SWEEP_RTOL; reported: how many
+    # requests moved, and by how much.
+    ensure(np.array_equal(out["n_measured"], ref64["n_measured"]), "sweep n_measured")
+    moved = {k: int(np.sum(out[k] != ref64[k])) for k in ("inst", "t_first", "t_fin", "n_served")}
+    diffs = {k: float(np.nanmax(np.abs(out[k] - ref64[k]), initial=0.0))
+             for k in ("t_first", "t_fin", "ttft_mean", "ttft_p50", "ttft_p95", "ttft_p99",
+                       "tbt_mean", "slo_attainment", "goodput_rps")}
+    for k in ("ttft_mean", "ttft_p50", "ttft_p95", "ttft_p99"):
+        rel = float(np.nanmax(np.abs(out[k] - ref64[k]) / np.abs(ref64[k]), initial=0.0))
+        ensure(rel <= SWEEP_RTOL, (f"sweep {k} off the f64 sweep", rel))
+    say(f"[sweep] backend=torch (f64) on the card: {wall64:.2f}s = {s / wall64:.2f} "
+        f"scenarios/s; kernel vs f64: entries that differ {moved}; max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+    for sched in EXP11["schedulers"]:
+        idx = [i for i, sp in enumerate(specs) if sp.scheduler == sched]
+        say(f"[sweep] {sched:>12}: mean TTFT {np.mean(out['ttft_mean'][idx]) * 1e3:.1f} ms, "
+            f"p95 {np.mean(out['ttft_p95'][idx]) * 1e3:.1f} ms, SLO "
+            f"{np.mean(out['slo_attainment'][idx]):.3f} (mean over {len(idx)} scenarios)")
+    tr = traced(plane.sweep, 1)
+    say(f"[sweep] traced kernel sweep: wall {tr['wall_ms'] / 1e3:.2f}s, device busy "
+        f"{tr['device_ms']:.1f} ms ({tr['busy_share']:.1%}); by class "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in tr["by_class_ms"].items()))
+    for us, count, key in tr.pop("top"):
+        say(f"[sweep]     {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    say("[sweep] " + json.dumps(dict(scenarios=s, steps=plane.n_steps, first_s=walls[0],
+                                     steady_s=walls[1], scenarios_per_s=s / walls[1],
+                                     torch_f64_s=wall64, differ_vs_f64=moved,
+                                     max_abs_diff_vs_f64=diffs, sweep_trace=tr)))
+    return launches[1]
+
+
+# ---------------------------------------------------------------- phase 9
+def burst_trace(bursts: int = 12, width: int = 4):
+    """Same-arrival bursts (tests/test_dispatchplane.py::_burst_trace): their
+    prefills finish at one instant, so the dispatch plane scores cohorts."""
+    from repro_torch.traces import Request
+
+    trace, rid = [], 0
+    for b in range(bursts):
+        for i in range(width):
+            trace.append(Request(rid, 0.1 + 0.4 * b, 1024, 64,
+                                 tuple(f"b{b}-{i}-{j}" for j in range(8)), rid, 1.0))
+            rid += 1
+    return trace
+
+
+def phase_simulate():
+    """run_sim with K1 scoring on the card and on the CPU; the card runs also
+    recompute every FlowPlane fixed point through waterfill_progressive.
+    Returns the card runs' launch counts and the captured flow tables."""
+    import dataclasses
+
+    from repro_torch.cluster import FlowPlane
+    from repro_torch.kernels import build
+    from repro_torch.kernels import netkv_score as ns
+    from repro_torch.kernels.waterfill import waterfill_rates
+    from repro_torch.sim import SimConfig, run_sim
+    from repro_torch.traces import generate_trace
+
+    traces = {
+        "mooncake": (generate_trace("chatbot", duration=EXP11["warmup"] + EXP11["measure"],
+                                    target_rps=EXP11["rps"], seed=0),
+                     dict(warmup=EXP11["warmup"], measure=EXP11["measure"],
+                          background=EXP11["background"], seed=0)),
+        "burst": (burst_trace(), dict(warmup=0.5, measure=4.0, seed=3)),
+    }
+    tables, worst = [], [0.0]
+    recompute = FlowPlane._recompute_rates
+
+    def shadowed(plane, dirty_links=None):
+        recompute(plane, dirty_links)
+        slots = plane._ordered_slots()
+        if not len(slots):
+            return
+        paths = plane.f_path[slots].astype(np.int32)
+        caps = plane._resid_caps.copy()
+        want = plane.f_rate[slots].copy()
+        rates, _, _, _ = waterfill_rates(paths, caps, backend="kernel", device="cuda")
+        got = rates.double().cpu().numpy()
+        fin = np.isfinite(want)
+        ensure(np.array_equal(np.isinf(got), np.isinf(want)), "K5 inf pattern vs FlowPlane")
+        rel = float(np.max(np.abs(got[fin] - want[fin]) / want[fin], initial=0.0))
+        ensure(rel <= 1e-4, ("waterfill_progressive vs FlowPlane.f_rate", rel))
+        worst[0] = max(worst[0], rel)
+        tables.append((paths, caps))
+
+    rows_per_launch: list[int] = []
+    card_kernel = ns.netkv_score_cohort
+
+    def counted(*a, **k):
+        rows_per_launch.append(int(a[3].shape[0]))
+        return card_kernel(*a, **k)
+
+    launches = {}
+    for name, (trace, kw) in traces.items():
+        out = {}
+        for device in ("cuda", "cpu"):
+            cfg = SimConfig(scheduler="netkv-full", dispatch_mode="plane",
+                            scheduler_kwargs=dict(backend="kernel", device=device), **kw)
+            rows_per_launch.clear()
+            if device == "cuda":
+                FlowPlane._recompute_rates, ns.netkv_score_cohort = shadowed, counted
+                build.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                m = run_sim(cfg, trace)
+            finally:
+                FlowPlane._recompute_rates, ns.netkv_score_cohort = recompute, card_kernel
+            wall = time.perf_counter() - t0
+            out[device] = dataclasses.asdict(m)
+            if device == "cuda":
+                launches[name] = dict(build.LAUNCHES)
+                hist = {r: rows_per_launch.count(r) for r in sorted(set(rows_per_launch))}
+                say(f"[simulate] {name} on the card: {len(trace)} requests, {wall:.2f}s wall; "
+                    f"launches {launches[name]}; netkv_score_cohort rows per launch {hist}")
+                ensure(launches[name]["netkv_score_cohort"] > 0, f"{name}: K1 not launched")
+                ensure(launches[name]["waterfill_progressive"] > 0, f"{name}: K5 not launched")
+                if name == "burst":
+                    ensure(max(rows_per_launch) > 1, "burst: no cohort of R > 1 rows")
+            else:
+                say(f"[simulate] {name} on the CPU: {wall:.2f}s wall")
+        clock = {"decision_latency_mean", "decision_latency_p99"}
+        diff = {k: (out["cuda"][k], out["cpu"][k]) for k in out["cpu"]
+                if k not in clock and not (out["cuda"][k] == out["cpu"][k] or (
+                    isinstance(out["cpu"][k], float) and np.isnan(out["cpu"][k])
+                    and np.isnan(out["cuda"][k])))}
+        ensure(not diff, (f"{name}: card and CPU RunMetrics differ", diff))
+        m = out["cuda"]
+        ensure(m["n_measured"] > 0 and np.isfinite(m["ttft_mean"]), f"{name}: no TTFT")
+        say(f"[simulate] {name}: every RunMetrics field equal on the card and the CPU "
+            f"(but decision latency); TTFT mean {m['ttft_mean'] * 1e3:.1f} ms p99 "
+            f"{m['ttft_p99'] * 1e3:.1f} ms, SLO {m['slo_attainment']:.3f}, "
+            f"decision latency {m['decision_latency_mean'] * 1e6:.1f} us (card) / "
+            f"{out['cpu']['decision_latency_mean'] * 1e6:.1f} us (CPU)")
+    say(f"[simulate] {len(tables)} FlowPlane fixed points recomputed by "
+        f"waterfill_progressive, max rel err vs the plane's f64 rates {worst[0]:.3g} (rtol 1e-4)")
+    return launches, tables
+
+
+def check_waterfill_progressive(rows: dict, tables) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.waterfill import waterfill_progressive
+
+    def on_card(paths, caps):
+        return (torch.from_numpy(paths).cuda(), torch.from_numpy(caps).float().cuda(),
+                torch.ones(len(paths), dtype=torch.bool).cuda())
+
+    for paths, caps in tables[::max(1, len(tables) // 200)]:
+        args = on_card(paths, caps)
+        rates, tl, ts, rounds = waterfill_progressive(*args)
+        p_rates, p_tl, p_ts, p_r = ref.waterfill_fixed_point_ref(*args)
+        ensure(int(rounds[0]) == p_r, ("rounds", int(rounds[0]), p_r))
+        ensure(torch.equal(rates, p_rates) and torch.equal(ts, p_ts),
+               "waterfill_progressive rates/shares differ from the plain version")
+        ensure(torch.equal(tl, p_tl), "waterfill_progressive trace links differ")
+    paths, caps = max(tables, key=lambda t: len(t[0]))
+    args = on_card(paths, caps)
+    f, h = paths.shape
+    l1 = len(caps)
+    say(f"[kernels] waterfill_progressive: {min(len(tables), 200)} FlowPlane tables "
+        f"(up to F {f} x H {h}, L+1 {l1}): rates, shares, trace links and rounds bitwise "
+        f"equal to the plain version")
+    moved = paths.size * 4 + l1 * 4 + f + f * 4 + 2 * f * 4 + 4
+    b_ms, b_by = bound(moved, float(l1 * f), torch.float32)
+    k_ms = device_time_ms(lambda: waterfill_progressive(*args), 200)
+    p_ms = wall_time_ms(lambda: ref.waterfill_fixed_point_ref(*args), 5)
+    tr = traced(lambda: waterfill_progressive(*args), 20)
+    rounds = int(waterfill_progressive(*args)[3][0])
+    say(f"[kernels] waterfill_progressive on that table: {rounds} rounds; traced device "
+        f"time {tr['device_ms']:.3f} ms a call, of which the kernel "
+        f"{tr['by_class_ms'].get('waterfill', 0.0):.3f} ms and the wrapper's prep ops the rest")
+    rows["waterfill_progressive"] = row(
+        "waterfill_progressive", 0.0, k_ms, p_ms, None, b_ms, b_by,
+        shape=f"F {f} x H {h}, L+1 {l1} f32 (largest FlowPlane table), {rounds} rounds",
+        kernel_only_ms=tr["by_class_ms"].get("waterfill", 0.0),
+        library="none: no single PyTorch call computes the fixed point")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -547,9 +884,17 @@ def main() -> int:
     phase_trace(cluster, prompts)
     del cluster
     torch.cuda.empty_cache()
-    launches["netkv_score_cohort"] = phase_decide()
+    decide = phase_decide()
+    launches["waterfill_fast"] = phase_sweep(rows)
+    sim_launches, tables = phase_simulate()
+    check_waterfill_progressive(rows, tables)
+    # K1 runs on two paths: the decide phase and the simulator's scoring.
+    launches["netkv_score_cohort"] = decide + sum(
+        v["netkv_score_cohort"] for v in sim_launches.values())
+    launches["waterfill_progressive"] = sum(
+        v["waterfill_progressive"] for v in sim_launches.values())
     kernels = []
-    for k in ("netkv_score_cohort", "kv_pack", "kv_unpack", "flash_decode"):
+    for k in KERNELS:
         entry = rows[k]
         entry["launches"] = launches[k]
         ensure(entry["launches"] > 0, f"{k} was not launched on its path")

@@ -1,5 +1,5 @@
 # The port's own copy of repro/core/schedulers.py.  It differs only in the
-# kernel hook (``backend="kernel"``) and in the parts not yet ported.
+# kernel hook (``backend="kernel"``).
 """Decode-instance selection policies (Algorithm 1 + the baseline ladder),
 vectorised over the ``ClusterView`` struct-of-arrays state plane.
 
@@ -17,7 +17,7 @@ router scoring fn).  The ladder, in ablation order (§VI-H):
   NetKVFull         -> + dynamic congestion c_tau (Algorithm 1 complete)
   NetKVPredictive   -> beyond paper: EWMA one-step congestion forecast
   NetKVBatch        -> beyond paper: batch-level joint assignment (§VII-C
-                       'future work'); not yet in the port (ROADMAP §1)
+                       'future work'), see batch_assign.py
 
 Scoring is one pass of NumPy array ops over the view's columns — feasibility
 mask, s_eff, T_xfer, T_queue, T_decode as Eq. (2)-(7) vectors — instead of a
@@ -289,11 +289,18 @@ class Scheduler:
         hit_fn=None,
         evictions_fn=None,
     ):
-        """Batched R-request selection (DispatchPlane).  The cohort walk,
-        ``repro.core.dispatch.CohortSelector``, is not in the port yet: it is
-        queued with the simulator stack (ROADMAP §1)."""
-        raise NotImplementedError(
-            "cohort dispatch is not ported yet (ROADMAP §1: simulator stack)")
+        """Batched R-request selection (DispatchPlane, ``core/dispatch.py``).
+
+        Returns a ``CohortSelector`` whose ``select_row(k)`` walk is
+        bit-identical — decisions, RNG tie-break stream, side effects — to
+        R sequential ``select`` calls against the live view.
+        """
+        from .dispatch import CohortSelector  # cycle-free late import
+
+        return CohortSelector(
+            self, items, as_cluster_view(cands, oracle), oracle, inflight,
+            hit_matrix=hit_matrix, hit_fn=hit_fn, evictions_fn=evictions_fn,
+        )
 
     # -- prefill deflection (RolePlane) -------------------------------------
     def select_deflected(self, req: RequestInfo, cands,
@@ -513,23 +520,24 @@ class NetKVFull(Scheduler):
 
     # -- kernel scoring path ------------------------------------------------
     def _select_kernel(self, req, prefill_id, cv, oracle, inflight, s_eff, tier_row):
-        from ..kernels.netkv_score import BIG, score_snapshot
+        from ..kernels.netkv_score import BIG, score_cohort_snapshot
 
         cong = self._congestion_by_tier(oracle)
         nfl = self._n_by_tier(inflight, prefill_id)
-        costs, best = score_snapshot(
+        costs, best = score_cohort_snapshot(
             cv.column("free_memory"), cv.column("queued"), cv.column("batch"),
             cv.column("hit_tokens"), tier_row,
             cv.column("healthy") & (cv.column("role") == ROLE_DECODE),
             cv.column("iter_scale"),
             [oracle.tier_bandwidth[t] for t in TIERS],
             [oracle.tier_latency[t] for t in TIERS],
-            [cong[t] for t in TIERS], [nfl[t] for t in TIERS],
-            s_r=float(req.kv_bytes), input_len=float(req.input_len),
+            [cong[t] for t in TIERS], [[nfl[t] for t in TIERS]],
+            s_r=[req.kv_bytes], input_len=[req.input_len],
             iter_a=self.iter_model.a, iter_b=self.iter_model.b,
             m_min=self.m_min, beta_max=self.beta_max, device=self.device,
         )
-        j = int(best)
+        costs = costs[0]
+        j = int(best[0])
         best_cost = float(costs[j])
         if not best_cost < BIG / 2:  # all candidates masked infeasible
             return None
@@ -543,15 +551,16 @@ class NetKVFull(Scheduler):
         h = self.trace_hook
         if h is not None and h.want_decision():
             self._note_kernel(req, prefill_id, cv, oracle, tier_row, s_eff,
-                              cv.column("hit_tokens"), costs.cpu().numpy(),
-                              cong, nfl, j, t_x)
+                              cv.column("hit_tokens"), costs, cong, nfl, j,
+                              t_x)
         return Decision(int(cv.ids[j]), best_cost, t_x, tier, se)
 
     def _note_kernel(self, req, prefill_id, cv, oracle, tier_row, s_eff,
                      hit, costs, cong, nfl, j, t_x_w):
         """Forensics row for a kernel-scored decision (numpy-free runner-up:
         the kernel's lowest-index tie-break is a masked argmin over its f32
-        cost row)."""
+        cost row).  Shared with the cohort selector's cached-row path so
+        both dispatch modes record identical rows."""
         from ..kernels.netkv_score import BIG
 
         c = np.asarray(costs)
@@ -628,11 +637,12 @@ LADDER = {
 
 
 def make_scheduler(name: str, iter_model: IterTimeModel, beta_max: int, **kw) -> Scheduler:
-    if name == "netkv-batch":
-        raise NotImplementedError(
-            "netkv-batch (batch_assign) is not ported yet (ROADMAP §1: simulator stack)")
     try:
         cls = LADDER[name]
     except KeyError:
-        raise ValueError(f"unknown scheduler {name!r}; known: {sorted(LADDER)}") from None
+        from .batch_assign import NetKVBatch  # cycle-free late import
+
+        if name == "netkv-batch":
+            return NetKVBatch(iter_model, beta_max, **kw)
+        raise ValueError(f"unknown scheduler {name!r}; known: {sorted(LADDER) + ['netkv-batch']}")
     return cls(iter_model, beta_max, **kw)

@@ -31,15 +31,17 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
 
 # source name -> extra nvcc flags.  netkv_score must agree bitwise with the
-# f32 NumPy twin on the host: no contraction of a*b+c into one FMA.
+# f32 NumPy twin on the host, and waterfill keeps its plain versions' order
+# of operations: no contraction of a*b+c into one FMA.
 SOURCES = {
     "netkv_score": ["--fmad=false"],
     "kv_pack": [],
     "flash_decode": [],
+    "waterfill": ["--fmad=false"],
 }
 
 LAUNCHES = {"netkv_score_cohort": 0, "kv_pack": 0, "kv_unpack": 0,
-            "flash_decode": 0}
+            "flash_decode": 0, "waterfill_progressive": 0, "waterfill_fast": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -82,31 +82,40 @@ def netkv_score_cohort(free_mem, queued, batch, hit_rows, tier_rows, healthy,
     return cost, best
 
 
-def score_snapshot(free_mem, queued, batch, hit_tokens, tier, healthy,
-                   iter_scale, tier_bw, tier_lat, congestion, n_inflight, *,
-                   s_r: float, input_len: float, iter_a: float, iter_b: float,
-                   m_min: float, beta_max: int, device: torch.device):
-    """One request against a host (NumPy) snapshot of the pool: the columns
-    are rounded to f32 on the host, packed into one buffer and moved to
-    ``device`` in one copy, then scored as a one-row cohort through
-    ``ops.netkv_score_cohort``.  Returns (costs (D,) on ``device``, best)."""
+def score_cohort_snapshot(free_mem, queued, batch, hit_rows, tier_rows, healthy,
+                          iter_scale, tier_bw, tier_lat, congestion, infl_rows, *,
+                          s_r, input_len, iter_a: float, iter_b: float,
+                          m_min: float, beta_max: int, device: torch.device):
+    """R requests against a host (NumPy) snapshot of the pool: the columns
+    (D,), the hit and tier rows (R, D), the self-contention rows (R, 4) and
+    the per-request s_r and input_len (R,) are rounded to f32 on the host,
+    packed into one buffer and moved to ``device`` in one copy, then scored
+    in one launch through ``ops.netkv_score_cohort``.
+
+    Returns (costs (R, D) f32, best (R,) int32), both NumPy on the host."""
     from . import ops
 
     d = len(free_mem)
-    host = np.empty(7 * d + 6, np.float32)
-    for i, col in enumerate((free_mem, queued, batch, healthy, iter_scale,
-                             hit_tokens)):
+    hit_rows = np.asarray(hit_rows).reshape(-1, d)
+    r = hit_rows.shape[0]
+    rd = r * d
+    host = np.empty(5 * d + 2 * rd + 6 * r, np.float32)
+    for i, col in enumerate((free_mem, queued, batch, healthy, iter_scale)):
         host[i * d:(i + 1) * d] = col
-    host[6 * d:7 * d].view(np.int32)[:] = tier
-    host[7 * d:7 * d + 4] = n_inflight
-    host[7 * d + 4] = s_r
-    host[7 * d + 5] = input_len
+    o = 5 * d
+    host[o:o + rd] = hit_rows.ravel()
+    host[o + rd:o + 2 * rd].view(np.int32)[:] = np.asarray(tier_rows).ravel()
+    o += 2 * rd
+    host[o:o + 4 * r] = np.asarray(infl_rows, np.float64).ravel()
+    host[o + 4 * r:o + 5 * r] = s_r
+    host[o + 5 * r:o + 6 * r] = input_len
     buf = torch.from_numpy(host).to(device)
     pool = buf[:5 * d].view(5, d)
+    rows = buf[5 * d:o]
     costs, best = ops.netkv_score_cohort(
-        pool[0], pool[1], pool[2], buf[5 * d:6 * d].view(1, d),
-        buf[6 * d:7 * d].view(torch.int32).view(1, d), pool[3], pool[4],
-        tier_bw, tier_lat, congestion, buf[7 * d:7 * d + 4].view(1, 4),
-        s_r=buf[7 * d + 4:7 * d + 5], input_len=buf[7 * d + 5:7 * d + 6],
+        pool[0], pool[1], pool[2], rows[:rd].view(r, d),
+        rows[rd:].view(torch.int32).view(r, d), pool[3], pool[4],
+        tier_bw, tier_lat, congestion, buf[o:o + 4 * r].view(r, 4),
+        s_r=buf[o + 4 * r:o + 5 * r], input_len=buf[o + 5 * r:o + 6 * r],
         iter_a=iter_a, iter_b=iter_b, m_min=m_min, beta_max=beta_max)
-    return costs[0], int(best[0])
+    return costs.cpu().numpy(), best.cpu().numpy()

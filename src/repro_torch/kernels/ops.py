@@ -57,3 +57,28 @@ def netkv_score_cohort(free_mem, queued, batch, hit_rows, tier_rows, healthy,
     return ref.netkv_score_cohort_ref(free_mem, queued, batch, hit_rows,
                                       tier_rows, healthy, iter_scale, tier_bw,
                                       tier_lat, congestion, infl_rows, **kw)
+
+
+def waterfill_progressive(paths: torch.Tensor, caps: torch.Tensor,
+                          active: torch.Tensor):
+    """K5: ``(rates, trace_links, trace_shares, n_rounds)``, ``n_rounds``
+    an int."""
+    if _on_card(caps):
+        from .waterfill import waterfill_progressive as kernel
+
+        rates, tl, ts, rounds = kernel(paths, caps, active)
+        r = int(rounds[0])
+        if r < 0:
+            raise RuntimeError("waterfill_progressive overran its round bound")
+        return rates, tl, ts, r
+    return ref.waterfill_fixed_point_ref(paths, caps, active)
+
+
+def waterfill_fast(caps: torch.Tensor, active: torch.Tensor,
+                   nhops: torch.Tensor) -> torch.Tensor:
+    """K6: rates (S, F) of S flow tables."""
+    if _on_card(caps):
+        from .waterfill import waterfill_fast as kernel
+
+        return kernel(caps, active, nhops)
+    return ref.waterfill_rates_fast_ref(caps, active, nhops)

@@ -94,3 +94,131 @@ def netkv_score_cohort_ref(free_mem, queued, batch, hit_rows, tier_rows,
     feasible = (hlt > 0.5) & (free >= s_eff + mm)
     cost = torch.where(feasible, cost, scalar(BIG))
     return cost, torch.argmin(cost, dim=1).to(torch.int32)
+
+
+# ------------------------------------------------------------ water-filling
+def waterfill_prep(paths: torch.Tensor, caps: torch.Tensor, active: torch.Tensor):
+    """The first-encounter link order of ``FlowPlane._recompute_rates``
+    (``repro/kernels/waterfill.py:119-129``), shared by the plain version
+    and the kernel's wrapper.  No op reads a value back to the host.
+
+    paths (F, H) link ids, short paths padded with the pad link L; caps
+    (L + 1,); active (F,) bool.  Returns ``(P, perm, counts0, caps_p0)``:
+    P (F, H) int64 permuted ids with inactive rows on the pad link, perm
+    (L + 1,) int64 (permuted -> original id), the unfixed-flow hop counts
+    (L + 1,) int64 with the pad's zeroed, and caps in permuted order."""
+    dev = caps.device
+    lp1 = caps.shape[0]
+    pad_link = lp1 - 1
+    p0 = torch.where(active[:, None], paths.to(dev, torch.int64), pad_link)
+    flat = p0.reshape(-1)
+    npos = flat.numel()
+    enc = torch.full((lp1,), npos + 1, dtype=torch.int64, device=dev)
+    enc = enc.scatter_reduce(0, flat, torch.arange(npos, device=dev), reduce="amin")
+    perm = torch.argsort(enc, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(lp1, device=dev)
+    p = inv[p0]
+    counts0 = torch.zeros(lp1, dtype=torch.int64, device=dev).index_add_(
+        0, p.reshape(-1), torch.ones(npos, dtype=torch.int64, device=dev))
+    counts0 = torch.where(torch.arange(lp1, device=dev) == inv[pad_link], 0, counts0)
+    return p, perm, counts0, caps[perm]
+
+
+def waterfill_fixed_point_ref(paths: torch.Tensor, caps: torch.Tensor,
+                              active: torch.Tensor | None = None):
+    """Progressive max-min water-filling, one bottleneck link a round
+    (``repro/kernels/waterfill.py::waterfill_fixed_point``), in the dtype of
+    ``caps``.  In f64 it is the port of the jitted f64 route and equals
+    ``FlowPlane._recompute_rates`` bit for bit; in f32 it is the plain
+    version of the ``waterfill_progressive`` kernel (K5).  The loop's
+    condition is read on the host every round.
+
+    Returns ``(rates (F,), trace_links (max(F, 1),) int32 in original link
+    ids, trace_shares (max(F, 1),), n_rounds)``; the trace is -1 / inf past
+    ``n_rounds``."""
+    dtype, dev = caps.dtype, caps.device
+    n_flows = paths.shape[0]
+    active = (torch.ones(n_flows, dtype=torch.bool, device=dev) if active is None
+              else active.to(dev, torch.bool))
+    p, perm, counts, caps_p = waterfill_prep(paths, caps, active)
+    caps_p = caps_p.clone()
+    inf = float("inf")
+    rates = torch.zeros(n_flows, dtype=dtype, device=dev)
+    unfixed = active.clone()
+    tl = torch.full((max(n_flows, 1),), -1, dtype=torch.int32, device=dev)
+    ts = torch.full((max(n_flows, 1),), inf, dtype=dtype, device=dev)
+    r = 0
+    nuf = int(active.sum())
+    while nuf > 0:
+        # A link no unfixed flow crosses has share inf (the kernels write
+        # BIG = 3e38 there; no real share comes near either).
+        ok = counts > 0
+        shares = torch.where(ok, caps_p / torch.where(ok, counts, 1).to(dtype),
+                             torch.full((), inf, dtype=dtype, device=dev))
+        lid = int(torch.argmin(shares))
+        share = shares[lid]
+        if float(share) == inf:
+            # No finite share left: strand the rest at inf, as the plane does.
+            rates[unfixed] = inf
+            break
+        onb = unfixed & (p == lid).any(dim=1)
+        rates[onb] = share
+        # Fixed rows subtract along their whole padded path; every target
+        # gets the same share, so the order of the additions is immaterial.
+        idx = p[onb].reshape(-1)
+        caps_p.index_add_(0, idx, (-share).expand(idx.numel()))
+        caps_p.clamp_(min=0.0)
+        counts.index_add_(0, idx, torch.full_like(idx, -1))
+        nuf -= int(onb.sum())
+        unfixed &= ~onb
+        tl[r] = perm[lid].to(torch.int32)
+        ts[r] = share
+        r += 1
+    return rates, tl, ts, r
+
+
+def waterfill_rates_fast_ref(caps: torch.Tensor, active: torch.Tensor,
+                             nhops: torch.Tensor) -> torch.Tensor:
+    """Parallel-bottleneck max-min water-filling over a batch of flow
+    tables (``repro/kernels/waterfill.py::waterfill_rates_fast`` with
+    ``nhops=``, vmapped), in the dtype of ``caps``.  In f64 it is the port
+    of the jitted f64 route; in f32 the plain version of the
+    ``waterfill_fast`` kernel (K6).  The loop's condition is read on the
+    host every round; a lane that has converged idles.
+
+    caps (S, L + 1); active (S, F) bool; nhops (S, F, L + 1) hops of flow f
+    on link l (inactive rows and the pad column are zeroed here).
+    Returns rates (S, F)."""
+    dtype, dev = caps.dtype, caps.device
+    lp1 = caps.shape[-1]
+    active = active.to(torch.bool)
+    nh = torch.where(active[..., None], nhops.to(dtype), torch.zeros((), dtype=dtype, device=dev))
+    nh[..., lp1 - 1] = 0.0
+    on_f = nh > 0.5
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    rates = torch.zeros(active.shape, dtype=dtype, device=dev)
+    unfixed = active.clone()
+    nuf = active.sum(dim=-1)
+    while bool((nuf > 0).any()):
+        counts = torch.matmul(unfixed.to(dtype)[..., None, :], nh)[..., 0, :]
+        used = torch.matmul(torch.where(torch.isfinite(rates), rates, zero)[..., None, :],
+                            nh)[..., 0, :]
+        caps_c = torch.clamp(caps - used, min=0.0)
+        shares = torch.where(counts > 0.5, caps_c / counts, inf)
+        live = on_f & unfixed[..., None]
+        s_f = torch.where(live, shares[..., None, :], inf).amin(dim=-1)
+        # Link l is a level bottleneck iff share_l <= the least bottleneck
+        # share of its unfixed flows.
+        lfm = torch.where(live, s_f[..., None], inf).amin(dim=-2)
+        fixable = (counts > 0.5) & (shares <= lfm)
+        fix = unfixed & torch.isfinite(s_f) & (
+            live & fixable[..., None, :] & (shares[..., None, :] <= s_f[..., None])
+        ).any(dim=-1)
+        anyfix = fix.any(dim=-1)
+        rates = torch.where(fix, s_f, rates)
+        rates = torch.where(~anyfix[..., None] & unfixed, inf, rates)
+        nuf = torch.where(anyfix, nuf - fix.sum(dim=-1), torch.zeros_like(nuf))
+        unfixed = unfixed & ~fix & anyfix[..., None]
+    return rates

@@ -1,20 +1,27 @@
-"""Serving launcher of the port: the real-model executable cluster.
+"""Serving launcher of the port: the paper-scale disaggregated cluster
+simulation, or the real-model executable cluster.
 
+    python -m repro_torch.launch.serve --profile rag --scheduler netkv-full
+    python -m repro_torch.launch.serve --profile rag --device cpu
     python -m repro_torch.launch.serve --real --arch qwen3-14b --requests 8
     python -m repro_torch.launch.serve --real --width full --requests 8
 
-``--width smoke`` (the default) serves the smoke config in f32 with the JAX
-launcher's workload; ``--width full`` serves the full-width config in its
-bf16 compute dtype with 2048-token prompts, the even ones sharing a
-1024-token prefix.  Without ``--real`` the launcher would run the
-paper-scale simulator, which is not ported yet (ROADMAP §1).
+Without ``--real`` it runs ``run_sim`` on the 64-GPU default cluster with
+the ``--arch`` KV-size model and prints the JAX launcher's lines.  The
+netkv rungs score through the ``netkv_score_cohort`` kernel on
+``--device`` (default: the CUDA card); ``--device cpu`` scores through its
+plain PyTorch version.
+
+With ``--real``, ``--width smoke`` (the default) serves the smoke config in
+f32 with the JAX launcher's workload; ``--width full`` serves the full-width
+config in its bf16 compute dtype with 2048-token prompts, the even ones
+sharing a 1024-token prefix.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import sys
 import time
 
 import numpy as np
@@ -64,22 +71,62 @@ def build_cluster(cfg, workload: dict, *, scheduler: str, seed: int, device=None
         background=workload["background"], params=params, device=device)
 
 
+def simulate(args) -> int:
+    """The JAX launcher's simulator branch (``repro/launch/serve.py:52-73``)."""
+    from ..configs import get_spec
+    from ..kernels import build
+    from ..sim import FaultEvent, SimConfig, run_sim
+    from ..traces import generate_trace, profile_capacity
+
+    kv = get_spec(args.arch).kv_spec()
+    cap = profile_capacity(args.profile, kv_bytes_per_token=kv.kv_bytes_per_token or 1.0)
+    trace = generate_trace(args.profile, duration=22.0,
+                           target_rps=cap * args.rate, seed=args.seed)
+    faults = [FaultEvent(time=8.0, kind="kill_decode", instance_id=5)] if args.faults else []
+    device = build.resolve_device(args.device)
+    # Every netkv rung is a NetKVFull and takes the kernel scoring backend.
+    sched_kw = dict(backend="kernel", device=device) if args.scheduler.startswith("netkv") else {}
+    cfg = SimConfig(scheduler=args.scheduler, seed=args.seed, kv_spec=kv,
+                    background=args.background, faults=faults,
+                    scheduler_kwargs=sched_kw)
+    launches = build.LAUNCHES["netkv_score_cohort"]
+    m = run_sim(cfg, trace)
+    print(f"{args.scheduler} on {args.profile} ({args.arch} KV) @ {args.rate:.0%}:")
+    print(f"  TTFT mean={m.ttft_mean*1e3:.0f}ms p99={m.ttft_p99*1e3:.0f}ms")
+    print(f"  TBT  mean={m.tbt_mean*1e3:.2f}ms  SLO={m.slo_attainment:.3f} "
+          f"goodput={m.goodput_rps:.2f}rps")
+    print(f"  transfer mean={m.xfer_mean*1e3:.0f}ms  tiers "
+          f"2:{m.tier_fraction[2]:.2f} 3:{m.tier_fraction[3]:.2f}")
+    if args.faults:
+        print(f"  requeues after failure: {m.requeues}")
+    if sched_kw and device.type == "cuda":
+        print(f"  netkv_score_cohort launches on {device}: "
+              f"{build.LAUNCHES['netkv_score_cohort'] - launches}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--real", action="store_true",
-                    help="serve real models end to end (the only ported mode)")
-    ap.add_argument("--arch", default="qwen3-14b")
+                    help="serve real models end to end instead of simulating")
+    ap.add_argument("--arch", default="qwen3-14b",
+                    help="the model served with --real; the KV-size model of "
+                         "the simulator")
     ap.add_argument("--width", choices=["smoke", "full"], default="smoke")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", default="netkv-full")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
+    ap.add_argument("--profile", default="rag",
+                    choices=["chatbot", "rag", "long_context"])
+    ap.add_argument("--rate", type=float, default=1.0, help="fraction of capacity")
+    ap.add_argument("--background", type=float, default=0.2)
+    ap.add_argument("--faults", action="store_true",
+                    help="inject a decode-instance failure mid-run")
     args = ap.parse_args(argv)
     if not args.real:
-        print("the simulator is not ported yet (ROADMAP §1: simulator stack); "
-              "use --real", file=sys.stderr)
-        return 2
+        return simulate(args)
 
     workload = FULL if args.width == "full" else SMOKE
     cfg = model_config(args.arch, args.width)

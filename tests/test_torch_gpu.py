@@ -137,3 +137,111 @@ def test_model_decode_on_card_matches_cpu(cuda):
         lg, cg = decode_step(gpu, tok.to(cuda), cg)
         torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     assert build.LAUNCHES["flash_decode"] == before + 4 * cfg.n_layers
+
+
+def _wf_table(seed, n_flows=40, n_links=28, h=6, stall=False):
+    """A random water-filling table; ``stall`` adds flows that cross only the
+    pad link (no finite share: the loop strands them at inf)."""
+    rng = np.random.default_rng(seed)
+    caps = np.append(rng.uniform(1e7, 1e9, n_links), np.inf)
+    paths = np.full((n_flows, h), n_links, np.int32)
+    for f in range(n_flows):
+        plen = int(rng.integers(1, h + 1))
+        paths[f, :plen] = rng.choice(n_links, plen, replace=False)
+    if stall:
+        paths[::7] = n_links
+    active = rng.random(n_flows) < 0.85
+    return paths, caps, active
+
+
+@pytest.mark.parametrize("seed,stall", [(0, False), (1, False), (2, True), (3, True)])
+def test_waterfill_progressive_matches_plain(cuda, seed, stall):
+    """K5 against its plain f32 version: every target of a round gets the
+    same share, so rates, trace and round count agree bit for bit."""
+    from repro_torch.kernels.waterfill import waterfill_progressive
+
+    paths, caps, active = _wf_table(seed, stall=stall)
+    args = (torch.from_numpy(paths), torch.from_numpy(caps).float(), torch.from_numpy(active))
+    before = build.LAUNCHES["waterfill_progressive"]
+    rates, tl, ts, rounds = waterfill_progressive(*(a.to(cuda) for a in args))
+    assert build.LAUNCHES["waterfill_progressive"] == before + 1
+    for dev in (cuda, "cpu"):
+        p_rates, p_tl, p_ts, p_r = ref.waterfill_fixed_point_ref(*(a.to(dev) for a in args))
+        assert int(rounds[0]) == p_r > 0
+        assert torch.equal(rates.cpu(), p_rates.cpu())
+        assert torch.equal(tl.cpu(), p_tl.cpu())
+        assert torch.equal(ts.cpu(), p_ts.cpu())
+    assert torch.all(rates.cpu()[~args[2]] == 0)
+    assert torch.isinf(rates.cpu()).any() == stall
+
+
+@pytest.mark.parametrize("s,f,lp1", [(1, 5, 4), (54, 119, 58), (7, 300, 130)])
+def test_waterfill_fast_matches_plain(cuda, s, f, lp1):
+    """K6 against its plain f32 version on S tables at once, with inactive
+    rows, an empty table and flows on the pad link only (inf stall).  The
+    kernel sums used capacity in flow order, the plain version by a matrix
+    product, so rates agree at rtol 1e-4 (the JAX package's tolerance for
+    its f32 route) and infinities in the same places."""
+    from repro_torch.kernels.waterfill import waterfill_fast
+
+    rng = np.random.default_rng(s * 1000 + f)
+    caps = np.concatenate([rng.uniform(1e7, 1e9, (s, lp1 - 1)), np.full((s, 1), np.inf)], 1)
+    nh = np.zeros((s, f, lp1))
+    for i in range(s):
+        for j in range(f):
+            for link in rng.choice(lp1, int(rng.integers(1, 5)), replace=False):
+                nh[i, j, link] += 1
+    nh[:, ::9] = 0.0  # no real link: stranded at inf
+    active = rng.random((s, f)) < 0.8
+    active[s // 2] = False
+    t = {k: torch.from_numpy(v) for k, v in (("caps", caps), ("active", active), ("nh", nh))}
+    before = build.LAUNCHES["waterfill_fast"]
+    got = waterfill_fast(t["caps"].float().to(cuda), t["active"].to(cuda), t["nh"].float().to(cuda))
+    assert build.LAUNCHES["waterfill_fast"] == before + 1
+    want = ref.waterfill_rates_fast_ref(t["caps"].float().to(cuda), t["active"].to(cuda),
+                                        t["nh"].float().to(cuda))
+    f64 = ref.waterfill_rates_fast_ref(t["caps"], t["active"], t["nh"])
+    for other in (want.cpu(), f64.float()):
+        assert torch.equal(torch.isinf(got.cpu()), torch.isinf(other))
+        torch.testing.assert_close(got.cpu(), other, rtol=1e-4, atol=0.0)
+    assert torch.all(got[s // 2] == 0)
+    assert torch.all(got.cpu()[~t["active"]] == 0)
+
+
+def test_waterfill_rejects(cuda):
+    from repro_torch.kernels.waterfill import waterfill_fast, waterfill_progressive
+
+    caps = torch.ones((2, 5), device=cuda)
+    with pytest.raises(TypeError):
+        waterfill_fast(caps.double(), torch.ones((2, 3), dtype=torch.bool, device=cuda),
+                       torch.ones((2, 3, 5), device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        waterfill_fast(caps, torch.ones((2, 3), dtype=torch.bool, device=cuda),
+                       torch.ones((2, 4, 5), device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        waterfill_progressive(torch.zeros((1, 2), dtype=torch.int32), caps[0].cpu(),
+                              torch.ones(1, dtype=torch.bool))
+
+
+def test_waterfill_wrappers_read_nothing_back(cuda):
+    """Neither wrapper nor its prep reads a value back to the host, so the
+    sweep enqueues its steps ahead of the card and a fixed point costs the
+    host no round trip."""
+    from repro_torch.kernels.waterfill import waterfill_fast, waterfill_progressive
+
+    paths, caps, active = _wf_table(4)
+    args = (torch.from_numpy(paths).to(cuda), torch.from_numpy(caps).float().to(cuda),
+            torch.from_numpy(active).to(cuda))
+    nh = torch.zeros((2, 3, 5), device=cuda)
+    nh[:, :, 1] = 1.0
+    fast = (torch.full((2, 5), 1e9, device=cuda), torch.ones((2, 3), dtype=torch.bool, device=cuda), nh)
+    waterfill_progressive(*args)
+    waterfill_fast(*fast)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        waterfill_progressive(*args)
+        waterfill_fast(*fast)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -215,13 +215,31 @@ class TestKernelBackend:
         assert kern.select(RequestInfo(0, 8192, 1e9), 0, cv, view) is None
 
     def test_unported_paths_raise(self):
-        from repro_torch.core import H100_TP4_ITER, make_scheduler
+        """Architectures other than qwen3-14b are not ported: asking for one
+        raises and names ROADMAP."""
+        from repro_torch.configs import get_spec as port_spec
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_scheduler("netkv-batch", H100_TP4_ITER, 64)
-        sched = make_scheduler("netkv-full", H100_TP4_ITER, 64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sched.select_cohort([], [], None, hit_matrix=None)
+        for arch in ("llama3-70b", "rwkv6-3b", "jamba-v0.1-52b"):
+            with pytest.raises(KeyError, match="ROADMAP"):
+                port_spec(arch)
+
+    def test_cohort_and_batch_paths_run(self):
+        """The cohort walk and netkv-batch, which raised before the simulator
+        was ported, run and agree with sequential selection."""
+        from repro_torch.core import (H100_TP4_ITER, CohortItem, CohortSelector, NetKVBatch,
+                                      RequestInfo, make_scheduler)
+
+        assert isinstance(make_scheduler("netkv-batch", H100_TP4_ITER, 64), NetKVBatch)
+        cv, view = _seeded_pool(32, 4)
+        items = [CohortItem(RequestInfo(k, 4096, 4096 * 320 * 1024.0), k % 2) for k in range(3)]
+        hits = np.zeros((3, cv.n))
+        seq = make_scheduler("netkv-full", H100_TP4_ITER, 64, backend="kernel", device="cpu")
+        sel = make_scheduler("netkv-full", H100_TP4_ITER, 64, backend="kernel", device="cpu")
+        walk = sel.select_cohort(items, cv, view, None, hit_matrix=hits)
+        assert isinstance(walk, CohortSelector)
+        for k, it in enumerate(items):
+            cv.hit_tokens[:cv.n] = 0.0
+            assert walk.select_row(k) == seq.select(it.req, it.prefill_id, cv, view, None)
 
 
 class TestPortRules:
@@ -239,7 +257,7 @@ class TestPortRules:
                              env=dict(os.environ, PYTHONPATH=str(SRC)),
                              timeout=300)
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.strip()) > 20
+        assert int(out.stdout.strip()) > 40
 
     def test_entry_points_refuse_to_run_without_a_card(self, setup):
         if torch.cuda.is_available():
@@ -258,6 +276,22 @@ class TestPortRules:
     def test_launcher(self, capsys):
         from repro_torch.launch import serve
 
-        assert serve.main(["--requests", "1"]) == 2
+        assert serve.main(["--profile", "chatbot", "--rate", "0.3", "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "netkv-full on chatbot (qwen3-14b KV) @ 30%:" in out and "TTFT mean=" in out
         assert serve.main(["--real", "--requests", "2", "--device", "cpu"]) == 0
         assert "served 2 requests on cpu" in capsys.readouterr().out
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                serve.main(["--profile", "chatbot"])
+
+    def test_chip_smoke_imports_nothing_of_jax_or_repro(self):
+        import ast
+
+        tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+        names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+        roots = {name.split(".")[0] for name in names}
+        assert "repro_torch" in roots
+        assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, roots
