@@ -9,9 +9,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
   2. build    nvcc every kernel source in parallel; ptxas registers/spills
   3. kernels  each kernel against its plain PyTorch version at the shapes of
               the serving path, with times for the kernel, the plain version
-              and the one PyTorch call that computes the same function
+              and the one PyTorch call that computes the same function;
+              rwkv_scan also at ragged T, B 2 and in bf16
   4. match    the serving path on the card against the same path on the CPU
-              (the plain versions), smoke config in f32: every result equal
+              (the plain versions), the qwen3-14b and rwkv6 smoke configs in
+              f32: every result equal
   5. serve    qwen3-14b at full width (bf16, random weights from a seed):
               2 prefill + 4 decode instances, 8 requests of 2048 tokens, 16
               new tokens each; launch counts of kv_pack/kv_unpack/flash_decode
@@ -19,16 +21,20 @@ Phases, in order; every check asserts and any failure exits non-zero:
               served cluster with its 4 slots full, decode steps on the host
               clock and under ``torch.profiler`` (device time by kernel class,
               the device's busy share of the traced window), and one prefill
-  7. decide   200 netkv-full decisions through the netkv_score_cohort kernel
+  7. serve    rwkv6-3b at full width on the same workload, after the qwen3
+              cluster is freed: 21,299,200 state bytes a request, rwkv_scan
+              launched 32 times a prefill, no attention kernel launched
+  8. trace    phase 6 on the rwkv6-3b cluster
+  9. decide   200 netkv-full decisions through the netkv_score_cohort kernel
               over a 2048-instance pool, each within rtol 1e-5 of the NumPy
               minimum; launch count of netkv_score_cohort
-  8. sweep    exp11's FULL grid (54 scenarios, 1400 steps of 0.01 s) through
+ 10. sweep    exp11's FULL grid (54 scenarios, 1400 steps of 0.01 s) through
               ScenarioPlane(backend="kernel"): first waterfill_fast against
               its plain version at the grid's shape, then the sweep twice
               (waterfill_fast launched once a step; the second call's wall
               and scenarios/s), sanity, and the summaries against the f64
               backend="torch" sweep on the card
-  9. simulate run_sim on the 64-GPU cluster, netkv-full scored by
+ 11. simulate run_sim on the 64-GPU cluster, netkv-full scored by
               netkv_score_cohort, over a Mooncake chatbot trace (one row a
               launch) and a same-arrival burst trace (cohorts of R > 1 rows):
               on the card every RunMetrics field equals the CPU run's but the
@@ -36,8 +42,8 @@ Phases, in order; every check asserts and any failure exits non-zero:
               the card runs is recomputed by waterfill_progressive and held
               to the plane's rates (rtol 1e-4); then waterfill_progressive
               against its plain version on those tables
- 10. one JSON line ``{"kernels": [...]}``
- 11. last line ``{"ok": true, "device": {...}}``
+ 12. one JSON line ``{"kernels": [...]}``
+ 13. last line ``{"ok": true, "device": {...}}``
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it fails.
@@ -45,6 +51,7 @@ device, or without the repository's ``src/`` beside it, it fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,6 +75,7 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:33",
     "waterfill_progressive": "src/repro/kernels/waterfill.py:52",
     "waterfill_fast": "src/repro/kernels/waterfill.py:182",
+    "rwkv_scan": "src/repro/kernels/rwkv_scan.py:28",
 }
 SOURCE = {
     "netkv_score_cohort": "src/repro_torch/csrc/netkv_score.cu",
@@ -76,9 +84,10 @@ SOURCE = {
     "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
     "waterfill_progressive": "src/repro_torch/csrc/waterfill.cu",
     "waterfill_fast": "src/repro_torch/csrc/waterfill.cu",
+    "rwkv_scan": "src/repro_torch/csrc/rwkv_scan.cu",
 }
 KERNELS = ("netkv_score_cohort", "kv_pack", "kv_unpack", "flash_decode",
-           "waterfill_progressive", "waterfill_fast")
+           "waterfill_progressive", "waterfill_fast", "rwkv_scan")
 # The FULL grid of benchmarks/exp11_scenario_sweep.py (defined here: that
 # module imports the JAX package).
 EXP11 = dict(schedulers=("cla", "netkv-static", "netkv-full"), chunks=(None, 256, 1024),
@@ -91,6 +100,11 @@ SWEEP_RTOL = 0.02
 # rounding step of the output, at most 2^-7 of its magnitude; a kernel that
 # kept p, l or the accumulator in bf16 errs by more on the small outputs.
 FD_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (0.0, 2e-5)}
+# rwkv_scan y (rtol, atol) by dtype: in f32 the atol tests/test_kernels.py
+# holds the TPU kernel to (the kernel sums over k in another order than the
+# plain version); in bf16 one rounding step of the output, as FD_TOL.  The
+# final state is f32 either way and held to atol 1e-4.
+RWKV_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (0.0, 1e-4)}
 
 
 def say(msg: str) -> None:
@@ -346,8 +360,65 @@ def check_netkv_score(rows: dict) -> None:
         r64_bound_ms=timed[64][2])
 
 
+def rwkv_inputs(b: int, t: int, h: int, dh: int, dtype, gen):
+    """tests/test_kernels.py's distributions: r, k, v, u ~ 0.3 N(0, 1), w in
+    (0.45, 0.95); u stays f32, as the model passes it."""
+    r, k, v = (0.3 * torch.randn((b, t, h, dh), generator=gen, device="cuda")
+               for _ in range(3))
+    w = 0.5 * torch.sigmoid(torch.randn((b, t, h, dh), generator=gen, device="cuda")) + 0.45
+    u = 0.3 * torch.randn((h, dh), generator=gen, device="cuda")
+    return [a.to(dtype) for a in (r, k, v, w)] + [u]
+
+
+def check_rwkv_scan(rows: dict) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {f32: 0.0, bf16: 0.0}
+    # The serving shape (B 1 x T 2048 x H 40 x dh 64, f32) first, then ragged
+    # T (a smoke prompt of 24 tokens, 2047), B 2, dh 128 and bf16 inputs.
+    for b, t, h, dh, dtype in ((1, 2048, 40, 64, f32), (1, 24, 40, 64, f32),
+                               (1, 2047, 40, 64, f32), (2, 24, 40, 64, f32),
+                               (2, 300, 4, 128, f32), (1, 2048, 40, 64, bf16),
+                               (2, 2047, 8, 64, bf16)):
+        args = rwkv_inputs(b, t, h, dh, dtype, gen)
+        y, s = rwkv_scan(*args)
+        want_y, want_s = ref.rwkv_scan_ref(*args)
+        ensure(y.dtype == dtype and s.dtype == f32, ("rwkv_scan dtypes", y.dtype, s.dtype))
+        rtol, atol = RWKV_TOL[dtype]
+        err = (y.float() - want_y.float()).abs()
+        excess = (err - rtol * want_y.float().abs() - atol).max().item()
+        s_err = (s - want_s).abs().max().item()
+        ensure(excess <= 0 and s_err <= 1e-4,
+               f"rwkv_scan {(b, t, h, dh)} {dtype}: y max err {err.max().item()} "
+               f"({excess} over (rtol, atol) {RWKV_TOL[dtype]}), state max err {s_err}")
+        worst[dtype] = max(worst[dtype], err.max().item(), s_err)
+        say(f"[kernels] rwkv_scan B {b} x T {t} x H {h} x dh {dh} {dtype}: y max abs err "
+            f"{err.max().item():.3g}, state {s_err:.3g}")
+    b, t, h, dh = 1, 2048, 40, 64
+    args = rwkv_inputs(b, t, h, dh, f32, gen)
+    n = b * t * h * dh
+    # Bytes: r, k, v, w read once, y written once, u read, the state written.
+    # Operations: 5 f32 a state element a step that the function needs: one
+    # FMA for sum_i r_i S_ij, and S w + k v (a multiply and an FMA).  The u
+    # term factors to v_j sum_i r_i u_i k_i, O(dh) a step, and is left out.
+    moved = 5 * n * 4 + h * dh * 4 + b * h * dh * dh * 4
+    b_ms, b_by = bound(moved, 5.0 * n * dh, f32)
+    k_ms = device_time_ms(lambda: rwkv_scan(*args), 20)
+    p_ms = device_time_ms(lambda: ref.rwkv_scan_ref(*args), 2)
+    say(f"[kernels] rwkv_scan at the serving shape: {k_ms:.4f} ms a launch, plain "
+        f"version {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows["rwkv_scan"] = row(
+        "rwkv_scan", worst[f32], k_ms, p_ms, None, b_ms, b_by,
+        shape=f"r/k/v/w ({b}, {t}, {h}, {dh}) f32", bf16_max_abs_err=worst[bf16],
+        library="none: no single PyTorch call computes the WKV-6 recurrence")
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
-def phase_match() -> None:
+def phase_match(arch: str) -> None:
     """Serve a small workload twice from one set of weights: on the card
     through the kernels and on the CPU through their plain versions, which
     the CPU tests hold equal to the JAX package.  Every result field (tokens,
@@ -355,10 +426,11 @@ def phase_match() -> None:
     import dataclasses
 
     from repro_torch.configs import get_spec
+    from repro_torch.kernels import build
     from repro_torch.launch.serve import SMOKE, build_cluster, make_requests
-    from repro_torch.models import Model, init_random_
+    from repro_torch.models import Model, init_random_, make_decode_cache
 
-    cfg = dataclasses.replace(get_spec("qwen3-14b").smoke, compute_dtype=torch.float32)
+    cfg = dataclasses.replace(get_spec(arch).smoke, compute_dtype=torch.float32)
     workload = dict(SMOKE, prefix_len=16)  # the even requests hit one page
     on_cpu = init_random_(Model(cfg, device="cpu"), 0)
     on_card = Model(cfg, device="cuda")
@@ -367,26 +439,35 @@ def phase_match() -> None:
     for device, model in (("cpu", on_cpu), ("cuda", on_card)):
         cluster = build_cluster(cfg, workload, scheduler="netkv-full", seed=0,
                                 device=device, params=model)
+        build.reset_launches()
         out[device] = [dataclasses.asdict(r) for r in
                        cluster.serve(make_requests(cfg.vocab_size, 8, 0, **workload))]
     ensure(out["cuda"] == out["cpu"], ("card and CPU results differ", out))
-    ensure(any(r["transfer_bytes"] < out["cpu"][0]["transfer_bytes"] for r in out["cpu"]),
-           "no prefix hit in the small workload")
-    say(f"[match] {cfg.name} f32: {len(out['cpu'])} requests, every result field equal "
-        f"on the card and on the CPU")
+    sent = [r["transfer_bytes"] for r in out["cpu"]]
+    if cfg.is_attention_free:
+        # The fixed state (f32 here) ships whole, prefix hit or not (ROADMAP §3).
+        state = sum(v.numel() * v.element_size()
+                    for k, v in make_decode_cache(cfg, 1, 0, "cpu").items() if k != "pos")
+        ensure(sent == [state] * len(sent), ("state bytes", sent, state))
+        ensure(build.LAUNCHES["rwkv_scan"] == cfg.n_layers * len(sent),
+               ("rwkv_scan launches on the card", build.LAUNCHES))
+    else:
+        ensure(any(n < sent[0] for n in sent), "no prefix hit in the small workload")
+    say(f"[match] {cfg.name} f32: {len(sent)} requests, every result field equal "
+        f"on the card and on the CPU; transfer bytes {sorted(set(sent))}")
 
 
-# ---------------------------------------------------------------- phase 5
-def phase_serve():
+# ---------------------------------------------------------- phases 5, 7
+def phase_serve(arch: str):
     """Serve the full-width workload; returns the launch counts of the run,
     the served cluster and its prompts."""
     from repro_torch.configs import get_spec
-    from repro_torch.core.cost import B_TOK
     from repro_torch.kernels import build
     from repro_torch.launch.serve import FULL, build_cluster, make_requests
+    from repro_torch.models import state_bytes
     from repro_torch.serving import engine
 
-    cfg, workload = get_spec("qwen3-14b").model, FULL
+    cfg, workload = get_spec(arch).model, FULL
     t0 = time.perf_counter()
     cluster = build_cluster(cfg, workload, scheduler="netkv-full", seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -424,13 +505,44 @@ def phase_serve():
     peak = torch.cuda.max_memory_allocated()
 
     ensure(all(bool(f) for f in finite), "a non-finite logit")
+    steps = sum(w["decode_steps"] for w in cluster.walls)
+    ensure(steps == len(results) * (workload["max_new"] - 1), ("decode steps", steps))
+    for r in results:
+        ensure(len(r.tokens) == workload["max_new"], (r.request_id, len(r.tokens)))
+    if cfg.is_attention_free:
+        # The fixed decode state ships whole for every request; the prefill
+        # runs the WKV recurrence on rwkv_scan, once a layer.
+        for r in results:
+            ensure(r.transfer_bytes == state_bytes(cfg, 0), (r.request_id, r.transfer_bytes))
+        want_launches = dict.fromkeys(build.LAUNCHES, 0) | {
+            "rwkv_scan": cfg.n_layers * len(results)}
+    else:
+        want_launches = dense_launches(cfg, workload, results, reqs, steps)
+    ensure(launches == want_launches, (launches, want_launches))
+    for r, w in zip(results, cluster.walls):
+        say(f"[serve] req{r.request_id}: decode@{r.decode_instance} tier{r.tier} "
+            f"xfer={r.transfer_bytes / 1e6:.1f}MB prefill={w['prefill_s'] * 1e3:.1f}ms "
+            f"transfer={w['transfer_s'] * 1e3:.1f}ms decode={w['decode_s'] * 1e3:.1f}ms "
+            f"({w['decode_steps']} steps, {w['decode_s'] / w['decode_steps'] * 1e3:.2f}ms/step) "
+            f"tokens={r.tokens[:6]}")
+    say(f"[serve] {cfg.name}: {len(results)} requests in {wall:.2f}s wall; peak memory "
+        f"{peak / 1e9:.2f} GB; launches {launches}")
+    return launches, cluster, [r.prompt for r in reqs]
+
+
+def dense_launches(cfg, workload, results, reqs, steps) -> dict:
+    """Checks the pages each request of the dense serve shipped (repeats of
+    a prefix on one decode instance skip its hit pages); returns the launch
+    counts the run must show."""
+    from repro_torch.core.cost import B_TOK
+    from repro_torch.kernels import build
+
     page_bytes = B_TOK * cfg.n_kv_heads * cfg.d_head * 2
     prompt_pages = workload["prompt_len"] // B_TOK
     seen: dict[int, list] = {}
     shipping = 0
     for r, req in zip(results, sorted(reqs, key=lambda x: x.arrival)):
         ensure(r.request_id == req.request_id, ("order", r.request_id, req.request_id))
-        ensure(len(r.tokens) == workload["max_new"], (r.request_id, len(r.tokens)))
         hit = 0
         for prev in seen.get(r.decode_instance, []):
             same = 0
@@ -444,26 +556,16 @@ def phase_serve():
         shipping += want > 0
     full_bytes = 2 * cfg.n_layers * prompt_pages * page_bytes
     ensure(any(r.transfer_bytes < full_bytes for r in results), "no repeat prefix hit")
-    steps = sum(w["decode_steps"] for w in cluster.walls)
-    ensure(steps == len(results) * (workload["max_new"] - 1), ("decode steps", steps))
-    want_launches = dict.fromkeys(build.LAUNCHES, 0) | {
+    return dict.fromkeys(build.LAUNCHES, 0) | {
         "flash_decode": cfg.n_layers * steps, "kv_pack": 2 * shipping,
         "kv_unpack": 2 * shipping}
-    ensure(launches == want_launches, (launches, want_launches))
-    for r, w in zip(results, cluster.walls):
-        say(f"[serve] req{r.request_id}: decode@{r.decode_instance} tier{r.tier} "
-            f"xfer={r.transfer_bytes / 1e6:.1f}MB prefill={w['prefill_s'] * 1e3:.1f}ms "
-            f"transfer={w['transfer_s'] * 1e3:.1f}ms decode={w['decode_s'] * 1e3:.1f}ms "
-            f"({w['decode_steps']} steps, {w['decode_s'] / w['decode_steps'] * 1e3:.2f}ms/step) "
-            f"tokens={r.tokens[:6]}")
-    say(f"[serve] {len(results)} requests in {wall:.2f}s wall; peak memory "
-        f"{peak / 1e9:.2f} GB; launches {launches}")
-    return launches, cluster, [r.prompt for r in reqs]
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------- phases 6, 8
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "rwkv" in low:
+        return "rwkv"
     if "flash_decode" in low:
         return "flash_decode"
     if "kv_pack" in low or "kv_unpack" in low:
@@ -512,6 +614,7 @@ def phase_trace(cluster, prompts) -> None:
     10 steps are timed on the host clock untraced, 4 more and one prefill
     under the profiler.  Each step ends in the host read of its tokens."""
     pe, de = cluster.prefill[0], cluster.decode[0]
+    name = cluster.cfg.name
     for i, p in enumerate(prompts[:de.n_slots]):
         de.admit(i, pe.run(i, p), max_new=64)
     for _ in range(3):
@@ -522,19 +625,19 @@ def phase_trace(cluster, prompts) -> None:
     step_ms = (time.perf_counter() - t0) * 1e3 / 10
     decode = traced(de.step, 4)
     prefill = traced(lambda: pe.run(0, prompts[0]), 1)
-    say(f"[trace] decode step (batch {de.n_slots}, pos ~{len(prompts[0])}): "
+    say(f"[trace] {name} decode step (batch {de.n_slots}, pos ~{len(prompts[0])}): "
         f"{step_ms:.2f} ms wall untraced")
     for label, tr in (("decode step", decode), ("prefill", prefill)):
-        say(f"[trace] traced {label}: wall {tr['wall_ms']:.2f} ms, device busy "
+        say(f"[trace] {name} traced {label}: wall {tr['wall_ms']:.2f} ms, device busy "
             f"{tr['device_ms']:.2f} ms ({tr['busy_share']:.1%}); by class "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in tr["by_class_ms"].items()))
         for us, count, key in tr.pop("top"):
             say(f"[trace]     {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    say("[trace] " + json.dumps(dict(decode_step_ms=step_ms, decode_trace=decode,
+    say("[trace] " + json.dumps(dict(model=name, decode_step_ms=step_ms, decode_trace=decode,
                                      prefill_trace=prefill)))
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 9
 def phase_decide() -> int:
     """200 kernel-scored decisions; returns the kernel's launch count."""
     from repro_torch.core import H100_TP4_ITER, RequestInfo, make_scheduler
@@ -579,7 +682,7 @@ def phase_decide() -> int:
     return launches
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 10
 def exp11_grid():
     from repro_torch.sim import ScenarioSpec
 
@@ -719,7 +822,7 @@ def phase_sweep(rows: dict) -> int:
     return launches[1]
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 11
 def burst_trace(bursts: int = 12, width: int = 4):
     """Same-arrival bursts (tests/test_dispatchplane.py::_burst_trace): their
     prefills finish at one instant, so the dispatch plane scores cohorts."""
@@ -879,11 +982,21 @@ def main() -> int:
     check_kv_pack(rows)
     check_flash_decode(rows)
     check_netkv_score(rows)
-    phase_match()
-    launches, cluster, prompts = phase_serve()
+    check_rwkv_scan(rows)
+    phase_match("qwen3-14b")
+    phase_match("rwkv6-3b")
+    launches, cluster, prompts = phase_serve("qwen3-14b")
     phase_trace(cluster, prompts)
     del cluster
+    gc.collect()
     torch.cuda.empty_cache()
+    say(f"[free] {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    rwkv_launches, cluster, prompts = phase_serve("rwkv6-3b")
+    phase_trace(cluster, prompts)
+    del cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["rwkv_scan"] = rwkv_launches["rwkv_scan"]
     decide = phase_decide()
     launches["waterfill_fast"] = phase_sweep(rows)
     sim_launches, tables = phase_simulate()

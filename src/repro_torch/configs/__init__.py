@@ -1,7 +1,8 @@
 """Per-architecture configs of the port (``--arch <id>``).
 
-Only qwen3-14b is ported; the other architectures of ``repro.configs``
-need block kinds that are queued in ROADMAP §1 (other architectures).
+qwen3-14b (dense) and rwkv6-3b (RWKV-6) are ported; the other
+architectures of ``repro.configs`` need block kinds that are queued in
+ROADMAP §1 (other architectures).
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import importlib
 
 from .base import ArchSpec
 
-_MODULES = {"qwen3-14b": "qwen3_14b"}
+_MODULES = {"qwen3-14b": "qwen3_14b", "rwkv6-3b": "rwkv6_3b"}
 ALL = list(_MODULES)
 
 

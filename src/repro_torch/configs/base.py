@@ -30,7 +30,7 @@ class ArchSpec:
             n_kv_heads=m.n_kv_heads,
             d_head=m.d_head,
             bytes_per_elem=2,
-            n_attn_layers=m.n_layers,
+            n_attn_layers=m.n_attn_layers,
             fixed_state_bytes=state_bytes(m, 0),
             tp=4,
         )

@@ -9,6 +9,8 @@
                       max-min water-filling fixed points, progressive (with
                       the bottleneck trace) and parallel-bottleneck
                       (csrc/waterfill.cu)
+  rwkv_scan           the WKV-6 recurrence of the RWKV-6 time mix, one block
+                      per (batch, head) over the whole of T (csrc/rwkv_scan.cu)
 
 ``ops`` routes CUDA tensors to the kernels and CPU tensors to ``ref``;
 ``build`` compiles the sources with nvcc at first use and counts launches.

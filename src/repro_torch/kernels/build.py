@@ -38,10 +38,12 @@ SOURCES = {
     "kv_pack": [],
     "flash_decode": [],
     "waterfill": ["--fmad=false"],
+    "rwkv_scan": [],
 }
 
 LAUNCHES = {"netkv_score_cohort": 0, "kv_pack": 0, "kv_unpack": 0,
-            "flash_decode": 0, "waterfill_progressive": 0, "waterfill_fast": 0}
+            "flash_decode": 0, "waterfill_progressive": 0, "waterfill_fast": 0,
+            "rwkv_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -82,3 +82,13 @@ def waterfill_fast(caps: torch.Tensor, active: torch.Tensor,
 
         return kernel(caps, active, nhops)
     return ref.waterfill_rates_fast_ref(caps, active, nhops)
+
+
+def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor):
+    """K7: the WKV-6 recurrence, ``(y, final_state)``."""
+    if _on_card(r):
+        from .rwkv_scan import rwkv_scan as kernel
+
+        return kernel(r, k, v, w, u)
+    return ref.rwkv_scan_ref(r, k, v, w, u)

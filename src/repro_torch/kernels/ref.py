@@ -222,3 +222,25 @@ def waterfill_rates_fast_ref(caps: torch.Tensor, active: torch.Tensor,
         nuf = torch.where(anyfix, nuf - fix.sum(dim=-1), torch.zeros_like(nuf))
         unfixed = unfixed & ~fix & anyfix[..., None]
     return rates
+
+
+# ------------------------------------------------------------------ WKV-6
+def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor):
+    """Sequential WKV-6 from a zero state (``repro/kernels/ref.py::
+    rwkv_scan_ref``).  r/k/v/w (B, T, H, dh) in any float dtype, w the
+    per-step decay; u (H, dh).  Everything is upcast to f32; the state
+    (B, H, dh, dh) is indexed [k_idx, v_idx] and each step computes
+    ``y = sum_k r_k (S + u_k k_k v) ; S = S * w_k + k v``.
+
+    Returns (y (B, T, H, dh) in r's dtype, final state f32)."""
+    b, t, h, dh = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    ys = torch.empty((b, t, h, dh), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]
+        ys[:, i] = (rf[:, i, :, :, None] * (state + uf * kv)).sum(dim=-2)
+        state = state * wf[:, i, :, :, None] + kv
+    return ys.to(r.dtype), state

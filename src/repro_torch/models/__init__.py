@@ -1,4 +1,5 @@
-"""The port's dense model: config, parameters, prefill, decode."""
+"""The port's models (dense and RWKV-6): config, parameters, prefill,
+decode."""
 
 from .convert import params_from_jax
 from .model import (
@@ -11,7 +12,15 @@ from .model import (
     prefill,
     state_bytes,
 )
+from .rwkv import (
+    rwkv_channel_mix,
+    rwkv_channel_mix_step,
+    rwkv_param_specs,
+    rwkv_time_mix,
+    rwkv_time_mix_step,
+)
 
 __all__ = ["Model", "ModelConfig", "decode_step", "init_random_",
            "make_decode_cache", "param_specs", "params_from_jax", "prefill",
-           "state_bytes"]
+           "rwkv_channel_mix", "rwkv_channel_mix_step", "rwkv_param_specs",
+           "rwkv_time_mix", "rwkv_time_mix_step", "state_bytes"]

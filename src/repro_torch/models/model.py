@@ -1,11 +1,14 @@
-"""The dense decoder of the port: config, parameters, prefill and decode.
+"""The decoder models of the port: config, parameters, prefill and decode.
 
-A port of the ``attn``/``dense`` period of ``repro/models/model.py``.  The
-JAX package's layouts hold at every public function: weights are
+A port of two periods of ``repro/models/model.py``: the dense transformer
+(``attn``/``dense``, qwen3-14b) and RWKV-6 (``rwkv``/``none``, rwkv6-3b).
+The JAX package's layouts hold at every public function: weights are
 (d_in, d_out) and applied as ``x @ W``; per-layer tensors stay stacked over
 the period axis P (``layers.b0.wq`` is (P, d, H*dh)), and a Python loop over
-layers takes the place of ``lax.scan``; caches are (P, B, S, KV, dh), the
-layout ``serving.transfer.paged_view`` pages.
+layers takes the place of ``lax.scan``; attention caches are (P, B, S, KV,
+dh), the layout ``serving.transfer.paged_view`` pages, and the RWKV state
+is ``wkv0`` (P, B, H, 64, 64) f32 with the shift states ``sa0``/``sc0``
+(P, B, d).
 
 Weights are stored once in ``compute_dtype``.  JAX keeps f32 parameters and
 casts every f32 tensor of more than one dimension to ``compute_dtype`` on
@@ -13,9 +16,14 @@ each call (the stacked per-layer norm scales included, since the period axis
 makes them 2-D) and gathers the embedding in f32 before the same cast.
 Storing those tensors in ``compute_dtype`` gives the same values, and saves
 an f32 copy that would not fit one card at qwen3-14b width (59 GB of f32
-plus a 30 GB cast copy).  ``out_norm`` is 1-D and stays f32, as in JAX.
+plus a 30 GB cast copy).  The rule covers RWKV's small stacked leaves in
+the same way (checked against ``_backbone_seq``'s cast): ``decay_base``,
+``ln_x``, ``ln1``, ``ln2`` (P, d), ``bonus_u`` (P, H, 64), ``mu_base``
+(P, 5, d) and ``cm_mu`` (P, 2, d) reach the JAX blocks in
+``compute_dtype``, and the blocks upcast ``bonus_u`` and the decay
+exponent to f32 themselves.  ``out_norm`` is 1-D and stays f32, as in JAX.
 
-Other block kinds (MoE, Mamba, RWKV, cross-attention) are not ported yet
+Other block kinds (MoE, Mamba, cross-attention) are not ported yet
 (ROADMAP §1, other architectures) and raise ``NotImplementedError``.
 """
 
@@ -30,9 +38,19 @@ from ..kernels import ops
 from ..kernels.build import resolve_device
 from .attention import chunked_causal_attention
 from .common import InitSpec, rms_norm, rope_tables, rotate, swiglu
+from .rwkv import (
+    HEAD_DIM as RWKV_HEAD_DIM,
+    rwkv_channel_mix,
+    rwkv_channel_mix_step,
+    rwkv_param_specs,
+    rwkv_time_mix,
+    rwkv_time_mix_step,
+)
 
-NOT_PORTED = ("only the dense attn/dense block is ported; other block kinds "
-              "are queued in ROADMAP §1 (other architectures)")
+# The ported periods: (block_pattern, ffn_pattern).
+PORTED = {(("attn",), ("dense",)): "dense", (("rwkv",), ("none",)): "rwkv"}
+NOT_PORTED = ("only the dense attn/dense and the rwkv/none periods are ported; "
+              "other block kinds are queued in ROADMAP §1 (other architectures)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,26 +79,45 @@ class ModelConfig:
     def n_periods(self) -> int:
         return self.n_layers // len(self.block_pattern)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return all(b != "attn" for b in self.block_pattern)
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.block_pattern != ("attn",) or cfg.ffn_pattern != ("dense",):
+    @property
+    def n_attn_layers(self) -> int:
+        return self.n_periods * sum(1 for b in self.block_pattern if b == "attn")
+
+
+def period_kind(cfg: ModelConfig) -> str:
+    """``"dense"`` or ``"rwkv"``; raises on every period not ported."""
+    kind = PORTED.get((tuple(cfg.block_pattern), tuple(cfg.ffn_pattern)))
+    if kind is None:
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")
+    return kind
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
     """Flat ``name -> InitSpec``; per-layer shapes carry the period axis."""
-    _check_dense(cfg)
+    kind = period_kind(cfg)
     d, h, kv, dh, p = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_periods
     specs = {
         "embed": InitSpec((cfg.vocab_size, d), scale=0.01),
         "out_norm": InitSpec((d,), kind="ones"),
         "lm_head": InitSpec((d, cfg.vocab_size)),
+    }
+    if kind == "rwkv":
+        block = {"ln1": InitSpec((d,), kind="ones"), "ln2": InitSpec((d,), kind="ones"),
+                 **rwkv_param_specs(d, cfg.d_ff)}
+        specs.update({f"layers.b0.{name}": InitSpec((p, *s.shape), s.scale, s.kind)
+                      for name, s in block.items()})
+        return specs
+    specs.update({
         "layers.b0.ln": InitSpec((p, d), kind="ones"),
         "layers.b0.wq": InitSpec((p, d, h * dh)),
         "layers.b0.wk": InitSpec((p, d, kv * dh)),
         "layers.b0.wv": InitSpec((p, d, kv * dh)),
         "layers.b0.wo": InitSpec((p, h * dh, d)),
-    }
+    })
     if cfg.qk_norm:
         specs["layers.b0.q_norm"] = InitSpec((p, dh), kind="ones")
         specs["layers.b0.k_norm"] = InitSpec((p, dh), kind="ones")
@@ -99,8 +136,9 @@ def storage_dtype(cfg: ModelConfig, spec: InitSpec) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """Parameters of one dense model, named as in the JAX parameter tree
-    (``embed``, ``out_norm``, ``lm_head``, ``layers.b0.*``, ``layers.f0.*``).
+    """Parameters of one model, named as in the JAX parameter tree
+    (``embed``, ``out_norm``, ``lm_head``, ``layers.b0.*`` and, for the
+    dense period, ``layers.f0.*``).
     Allocated uninitialised; fill with :func:`init_random_` or
     ``convert.params_from_jax``."""
 
@@ -109,7 +147,8 @@ class Model(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         self.specs = param_specs(cfg)
-        self.layers = nn.ModuleDict({"b0": nn.ParameterDict(), "f0": nn.ParameterDict()})
+        blocks = sorted({n.split(".")[1] for n in self.specs if n.startswith("layers.")})
+        self.layers = nn.ModuleDict({blk: nn.ParameterDict() for blk in blocks})
         for name, spec in self.specs.items():
             t = nn.Parameter(torch.empty(spec.shape, dtype=storage_dtype(cfg, spec),
                                          device=dev), requires_grad=False)
@@ -148,26 +187,35 @@ def init_random_(model: Model, seed: int) -> Model:
 
 
 def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
-    """Zeroed decode cache: ``k0``/``v0`` (P, B, cache_len, KV, dh) and
-    ``pos`` (a host int)."""
-    _check_dense(cfg)
-    shape = (cfg.n_periods, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+    """Zeroed decode cache and ``pos`` (a host int).  Dense: ``k0``/``v0``
+    (P, B, cache_len, KV, dh).  RWKV: ``wkv0`` (P, B, H, 64, 64) f32 and
+    ``sa0``/``sc0`` (P, B, d), whatever ``cache_len``."""
     dev = resolve_device(device)
-    return {"k0": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-            "v0": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+    p, cd = cfg.n_periods, cfg.compute_dtype
+    if period_kind(cfg) == "rwkv":
+        h = cfg.d_model // RWKV_HEAD_DIM
+        return {"wkv0": torch.zeros((p, batch, h, RWKV_HEAD_DIM, RWKV_HEAD_DIM),
+                                    dtype=torch.float32, device=dev),
+                "sa0": torch.zeros((p, batch, cfg.d_model), dtype=cd, device=dev),
+                "sc0": torch.zeros((p, batch, cfg.d_model), dtype=cd, device=dev),
+                "pos": 0}
+    shape = (p, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k0": torch.zeros(shape, dtype=cd, device=dev),
+            "v0": torch.zeros(shape, dtype=cd, device=dev),
             "pos": 0}
 
 
 def state_bytes(cfg: ModelConfig, seq_len: int) -> int:
     """Transferred decode-state bytes for one request (Eq. 1 generalised)."""
-    _check_dense(cfg)
-    return 2 * cfg.n_periods * seq_len * cfg.n_kv_heads * cfg.d_head * 2
+    p = cfg.n_periods
+    if period_kind(cfg) == "rwkv":
+        h = cfg.d_model // RWKV_HEAD_DIM
+        return p * (h * RWKV_HEAD_DIM * RWKV_HEAD_DIM * 4 + 2 * cfg.d_model * 2)
+    return 2 * p * seq_len * cfg.n_kv_heads * cfg.d_head * 2
 
 
-def _layer(model: Model, i: int) -> tuple[dict, dict]:
-    b0 = {k: v[i] for k, v in model.layers["b0"].items()}
-    f0 = {k: v[i] for k, v in model.layers["f0"].items()}
-    return b0, f0
+def _layer(model: Model, i: int, block: str) -> dict:
+    return {k: v[i] for k, v in model.layers[block].items()}
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
@@ -195,42 +243,80 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
 def prefill(model: Model, tokens: torch.Tensor, cache_len: int | None = None):
     """Run the prompt (B, S); return (last-token logits (B, 1, V), cache).
 
-    The K/V leaves are allocated at ``cache_len`` (>= S) and zero past the
-    prompt, the JAX version's padding, so decode can append in place."""
+    Dense: the K/V leaves are allocated at ``cache_len`` (>= S) and zero
+    past the prompt, the JAX version's padding, so decode can append in
+    place.  RWKV: each layer's final WKV state and last shift inputs."""
     cfg = model.cfg
     b, s = tokens.shape
     cache = make_decode_cache(cfg, b, cache_len or s, model.device)
     x = model.embed[tokens]
+    if period_kind(cfg) == "rwkv":
+        x = _prefill_rwkv(model, x, cache)
+    else:
+        x = _prefill_dense(model, x, cache)
+    cache["pos"] = s
+    return _logits(model, x[:, -1:]), cache
+
+
+def _prefill_dense(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    cfg = model.cfg
+    b, s, _ = x.shape
     cos, sin = rope_tables(torch.arange(s, device=model.device)[None, :],
                            cfg.d_head, cfg.rope_theta)
     for i in range(cfg.n_periods):
-        pa, pf = _layer(model, i)
+        pa, pf = _layer(model, i, "b0"), _layer(model, i, "f0")
         q, k, v = _qkv(cfg, pa, x, cos, sin)
         att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
         x = x + att.reshape(b, s, -1) @ pa["wo"]
         cache["k0"][i, :, :s] = k
         cache["v0"][i, :, :s] = v
         x = x + _ffn(cfg, pf, x)
-    cache["pos"] = s
-    return _logits(model, x[:, -1:]), cache
+    return x
+
+
+def _prefill_rwkv(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    """The time mix's recurrence runs through ``ops.rwkv_scan``."""
+    eps = model.cfg.norm_eps
+    for i in range(model.cfg.n_periods):
+        p = _layer(model, i, "b0")
+        out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps))
+        x = x + out
+        out, last2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], eps))
+        x = x + out
+        cache["wkv0"][i] = wkv
+        cache["sa0"][i] = last
+        cache["sc0"][i] = last2
+    return x
 
 
 @torch.no_grad()
 def decode_step(model: Model, token: torch.Tensor, cache: dict):
-    """token (B, 1) -> (logits (B, 1, V), cache) at the scalar ``cache["pos"]``.
+    """token (B, 1) -> (logits (B, 1, V), cache); ``cache["pos"]`` advances
+    by one.
 
-    The new K/V rows are written into the cache at ``pos`` in place (JAX
-    returns an updated copy; writing in place saves a cache copy per layer)
-    and ``cache["pos"]`` advances by one.  Attention runs through
-    ``ops.flash_decode`` over the first pos+1 entries."""
+    The cache is updated in place (JAX returns an updated copy; writing in
+    place saves a cache copy per layer).  Dense: the new K/V rows land at
+    the scalar ``pos`` and attention runs through ``ops.flash_decode`` over
+    the first pos+1 entries.  RWKV: each layer's WKV and shift states are
+    overwritten by the step's (plain PyTorch, as in JAX)."""
+    cfg = model.cfg
+    x = model.embed[token]
+    if period_kind(cfg) == "rwkv":
+        x = _decode_rwkv(model, x, cache)
+    else:
+        x = _decode_dense(model, x, cache)
+    cache["pos"] = int(cache["pos"]) + 1
+    return _logits(model, x), cache
+
+
+def _decode_dense(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
     cfg = model.cfg
     pos = int(cache["pos"])
-    b = token.shape[0]
-    x = model.embed[token]
+    b = x.shape[0]
     cos, sin = rope_tables(torch.full((1, 1), pos, device=model.device),
                            cfg.d_head, cfg.rope_theta)
     for i in range(cfg.n_periods):
-        pa, pf = _layer(model, i)
+        pa, pf = _layer(model, i, "b0"), _layer(model, i, "f0")
         q, k, v = _qkv(cfg, pa, x, cos, sin)
         k_cache, v_cache = cache["k0"][i], cache["v0"][i]
         k_cache[:, pos] = k[:, 0]
@@ -238,5 +324,19 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict):
         att = ops.flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
         x = x + att.reshape(b, 1, -1) @ pa["wo"]
         x = x + _ffn(cfg, pf, x)
-    cache["pos"] = pos + 1
-    return _logits(model, x), cache
+    return x
+
+
+def _decode_rwkv(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    eps = model.cfg.norm_eps
+    for i in range(model.cfg.n_periods):
+        p = _layer(model, i, "b0")
+        wkv, sa, sc = cache["wkv0"][i], cache["sa0"][i], cache["sc0"][i]
+        out, new_wkv, last = rwkv_time_mix_step(p, rms_norm(x, p["ln1"], eps), wkv, sa)
+        x = x + out
+        out, last2 = rwkv_channel_mix_step(p, rms_norm(x, p["ln2"], eps), sc)
+        x = x + out
+        wkv.copy_(new_wkv)
+        sa.copy_(last)
+        sc.copy_(last2)
+    return x

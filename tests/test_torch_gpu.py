@@ -245,3 +245,87 @@ def test_waterfill_wrappers_read_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# y in bf16: both versions sum in f32 and round once, so they may differ by
+# one rounding step of the output (rtol 2^-7); f32 y and the state: the
+# atol tests/test_kernels.py holds the TPU kernel to.
+RWKV_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,dh", [
+    (1, 128, 2, 64), (2, 256, 3, 64), (1, 512, 1, 128), (2, 24, 2, 64), (1, 77, 3, 128),
+    (2, 33, 2, 40), (1, 1, 4, 16),
+])
+def test_rwkv_scan_matches_plain(cuda, dtype, b, t, h, dh):
+    """K7 against its plain version: dh 64 and 128 and padded widths, ragged
+    T, f32 and bf16 inputs."""
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+
+    gen = torch.Generator(device=cuda).manual_seed(b * t + h * dh)
+    r, k, v = (0.3 * torch.randn((b, t, h, dh), generator=gen, device=cuda) for _ in range(3))
+    w = 0.5 * torch.sigmoid(torch.randn((b, t, h, dh), generator=gen, device=cuda)) + 0.45
+    u = 0.3 * torch.randn((h, dh), generator=gen, device=cuda)
+    args = [a.to(dtype) for a in (r, k, v, w)] + [u]
+    before = build.LAUNCHES["rwkv_scan"]
+    y, s = rwkv_scan(*args)
+    assert build.LAUNCHES["rwkv_scan"] == before + 1
+    want_y, want_s = ref.rwkv_scan_ref(*args)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    rtol, atol = RWKV_TOL[dtype]
+    excess = ((y.float() - want_y.float()).abs() - rtol * want_y.float().abs() - atol).max()
+    assert excess.item() <= 0, (y.float() - want_y.float()).abs().max().item()
+    torch.testing.assert_close(s, want_s, rtol=0.0, atol=1e-4)
+
+
+def test_rwkv_scan_rejects(cuda):
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+
+    x = torch.zeros((1, 8, 2, 64), device=cuda)
+    u = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros((1, 8, 1, 256), device=cuda)
+        rwkv_scan(wide, wide, wide, wide, torch.zeros((1, 256), device=cuda))
+    with pytest.raises(TypeError):
+        rwkv_scan(x, x.bfloat16(), x, x, u)
+    with pytest.raises(TypeError):
+        rwkv_scan(*(x.half() for _ in range(4)), u)
+    with pytest.raises(ValueError, match="shape"):
+        rwkv_scan(x, x, x[:, :4].contiguous(), x, u)
+    with pytest.raises(ValueError, match="u must"):
+        rwkv_scan(x, x, x, x, u[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv_scan(x.transpose(1, 2), x, x, x, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv_scan(x, x.cpu(), x, x, u)
+
+
+def test_rwkv_model_on_card_matches_cpu(cuda):
+    """The rwkv6 smoke model in f32: prefill through rwkv_scan on the card
+    and decode steps against the plain path on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, decode_step, init_random_, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products on both sides
+    cfg = dataclasses.replace(get_spec("rwkv6-3b").smoke, compute_dtype=torch.float32)
+    cpu = init_random_(Model(cfg, device="cpu"), 0)
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+    before = dict(build.LAUNCHES)
+    lc, cc = prefill(cpu, toks)
+    lg, cg = prefill(gpu, toks.to(cuda))
+    assert build.LAUNCHES["rwkv_scan"] == before["rwkv_scan"] + cfg.n_layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for _ in range(3):
+        tok = torch.argmax(lc[:, -1], dim=-1)[:, None]
+        lc, cc = decode_step(cpu, tok, cc)
+        lg, cg = decode_step(gpu, tok.to(cuda), cg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for leaf in ("wkv0", "sa0", "sc0"):
+        torch.testing.assert_close(cg[leaf].cpu(), cc[leaf], atol=1e-4, rtol=1e-4)
+    assert build.LAUNCHES["rwkv_scan"] == before["rwkv_scan"] + cfg.n_layers
+    assert build.LAUNCHES["flash_decode"] == before["flash_decode"]

@@ -215,11 +215,11 @@ class TestKernelBackend:
         assert kern.select(RequestInfo(0, 8192, 1e9), 0, cv, view) is None
 
     def test_unported_paths_raise(self):
-        """Architectures other than qwen3-14b are not ported: asking for one
-        raises and names ROADMAP."""
+        """Architectures other than qwen3-14b and rwkv6-3b are not ported:
+        asking for one raises and names ROADMAP."""
         from repro_torch.configs import get_spec as port_spec
 
-        for arch in ("llama3-70b", "rwkv6-3b", "jamba-v0.1-52b"):
+        for arch in ("llama3-70b", "granite-moe-1b-a400m", "jamba-v0.1-52b"):
             with pytest.raises(KeyError, match="ROADMAP"):
                 port_spec(arch)
 
