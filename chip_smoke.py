@@ -6,11 +6,16 @@
 Phases, in order; every check asserts and any failure exits non-zero:
 
   1. device   name, count, ``nvidia-smi`` name and power limit
-  2. build    nvcc every kernel source in parallel; ptxas registers/spills
+  2. build    nvcc every kernel source in parallel; ptxas registers/spills,
+              and the whole -Xptxas -v of flash_decode.cu and rwkv_scan.cu
   3. kernels  each kernel against its plain PyTorch version at the shapes of
               the serving path, with times for the kernel, the plain version
               and the one PyTorch call that computes the same function;
-              rwkv_scan also at ragged T, B 2 and in bf16
+              flash_decode also where its split over the cache shows (one
+              range, a range's edge and one past it, G 8, dh 16-256), with
+              its ranges, grid and launches a call; rwkv_scan also at ragged
+              T, B 2, dh 16-128 across its column groups and in bf16; both
+              deterministic (two calls bitwise equal)
   4. match    the serving path on the card against the same path on the CPU
               (the plain versions), the qwen3-14b and rwkv6 smoke configs in
               f32: every result equal
@@ -54,6 +59,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -191,6 +197,10 @@ def phase_build() -> None:
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
+    for name in ("flash_decode", "rwkv_scan"):
+        say(f"[build] -Xptxas -v of {name}.cu:")
+        for line in logs[name]["ptxas"].splitlines():
+            say(f"[build]   {line.rstrip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -241,28 +251,69 @@ def flash_decode_error(out, want) -> tuple[float, float]:
     return err.max().item(), (err - rtol * want.abs() - atol).max().item()
 
 
+def range_edges(q, k, s: int) -> list[int]:
+    """pos values at which K4's last range is exactly full, and one past:
+    the first and last such pos up to S."""
+    from repro_torch.kernels.flash_decode import plan_for
+
+    full = [p for p in range(2, s + 1)
+            if (pl := plan_for(q, k, p)).n_split > 1 and pl.n_split * pl.range_len == p]
+    return sorted({p + d for p in (full[0], full[-1]) for d in (0, 1) if p + d <= s})
+
+
 def check_flash_decode(rows: dict) -> None:
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_decode as fd, ref
+    from repro_torch.kernels import build, flash_decode as fd, ref
 
-    b, h, kv, dh, s = 4, 40, 8, 128, 4096
     gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(b, h, kv, dh, s, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((b, h, dh), (b, s, kv, dh), (b, s, kv, dh))]
+
+    def held(q, k, v, pos, what) -> float:
+        err, excess = flash_decode_error(fd.flash_decode(q, k, v, pos),
+                                         ref.flash_decode_ref(q, k, v, pos))
+        ensure(excess <= 0, f"flash_decode {what} pos={pos}: max err {err}, "
+               f"{excess} over (rtol, atol) {FD_TOL[q.dtype]}")
+        return err
+
+    # The split's edges at small shapes: one (batch, KV head) over many
+    # ranges, G 8, dh 16, 64 and 256; pos 1, on the last range's edge and
+    # one past it, and S.
+    for b, h, kv, dh, s in ((1, 1, 1, 128, 4096), (2, 16, 2, 64, 1024), (3, 24, 3, 16, 600),
+                            (2, 12, 4, 256, 700)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(b, h, kv, dh, s, dtype)
+            poss = [1, *range_edges(q, k, s), s]
+            err = max(held(q, k, v, pos, f"{(b, h, kv, dh, s)} {dtype}") for pos in poss)
+            say(f"[kernels] flash_decode B {b} H {h} KV {kv} dh {dh} S {s} {dtype}: pos {poss}, "
+                f"up to {fd.plan_for(q, k, s).n_split} ranges, max abs err {err:.3g}")
+    b, h, kv, dh, s = 4, 40, 8, 128, 4096
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                   for shape in ((b, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+        q, k, v = inputs(b, h, kv, dh, s, dtype)
         worst = 0.0
-        for pos in (1, 16, 2049, 4096):
-            err, excess = flash_decode_error(fd.flash_decode(q, k, v, pos),
-                                             ref.flash_decode_ref(q, k, v, pos))
-            ensure(excess <= 0, f"flash_decode {dtype} pos={pos}: max err {err}, "
-                   f"{excess} over (rtol, atol) {FD_TOL[dtype]}")
-            worst = max(worst, err)
+        for pos in (1, 16, *range_edges(q, k, s), 2049, 2056, 4096):
+            worst = max(worst, held(q, k, v, pos, str(dtype)))
+        ensure(torch.equal(fd.flash_decode(q, k, v, 2056), fd.flash_decode(q, k, v, 2056)),
+               f"flash_decode {dtype}: two calls differ")
         say(f"[kernels] flash_decode {dtype}: max abs err {worst:.3g} "
-            f"((rtol, atol) {FD_TOL[dtype]})")
+            f"((rtol, atol) {FD_TOL[dtype]}); two calls bitwise equal")
         if dtype != torch.bfloat16:
             continue
         pos = 2056  # a decode step of a 2048-token prompt
+        plan = fd.plan_for(q, k, pos)
+        grid = (b * kv, plan.n_split)
+        tr = traced(lambda: fd.flash_decode(q, k, v, pos), 20)
+        mine = [(us, n, key) for us, n, key in tr["top"] if kernel_class(key) == "flash_decode"]
+        per_call = sum(n for _, n, _ in mine) / 20
+        say(f"[kernels] flash_decode at pos {pos}: n_split {plan.n_split} ranges of "
+            f"{plan.range_len} keys, grid {grid} = {grid[0] * grid[1]} blocks on "
+            f"{build.sm_count(q.device)} SMs, {per_call:g} kernel launches a call (profiler: "
+            + ", ".join(f"{re.search(r'flash_decode_[a-z]+', key).group()} {us / n:.2f} us"
+                        for us, n, key in mine)
+            + ")")
         es = q.element_size()
         moved = 2 * b * pos * kv * dh * es + 2 * q.numel() * es
         b_ms, b_by = bound(moved, 4.0 * b * h * pos * dh, dtype)
@@ -273,9 +324,13 @@ def check_flash_decode(rows: dict) -> None:
         p_ms = device_time_ms(lambda: ref.flash_decode_ref(q, k, v, pos), 20)
         l_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
             qs, kt, vt, attn_mask=mask, enable_gqa=True), 100)
+        say(f"[kernels] flash_decode: {k_ms:.4f} ms a call, SDPA {l_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         rows["flash_decode"] = row(
             "flash_decode", worst, k_ms, p_ms, l_ms, b_ms, b_by,
-            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 pos {pos}")
+            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 pos {pos}",
+            n_split=plan.n_split, range_len=plan.range_len, grid=list(grid),
+            kernel_launches_per_call=per_call)
         del kt, vt
     torch.cuda.empty_cache()
 
@@ -371,18 +426,26 @@ def rwkv_inputs(b: int, t: int, h: int, dh: int, dtype, gen):
 
 
 def check_rwkv_scan(rows: dict) -> None:
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv_scan import rwkv_scan
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.rwkv_scan import column_plan, rwkv_scan
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
     worst = {f32: 0.0, bf16: 0.0}
     # The serving shape (B 1 x T 2048 x H 40 x dh 64, f32) first, then ragged
-    # T (a smoke prompt of 24 tokens, 2047), B 2, dh 128 and bf16 inputs.
+    # T (1, a smoke prompt of 24 tokens, 2047), B 2, dh 128 and bf16 inputs;
+    # then the column groups: 16 wide at dh 16 (one), 40 (a short last
+    # group, rows padded to 64) and 128 (eight), dh 20 in bf16 (rows padded
+    # to whole 16-byte pieces by the wrapper), 24 wide at dh 40 (as at the
+    # serving shape, a short last group) and 32 wide at dh 128.
     for b, t, h, dh, dtype in ((1, 2048, 40, 64, f32), (1, 24, 40, 64, f32),
                                (1, 2047, 40, 64, f32), (2, 24, 40, 64, f32),
                                (2, 300, 4, 128, f32), (1, 2048, 40, 64, bf16),
-                               (2, 2047, 8, 64, bf16)):
+                               (2, 2047, 8, 64, bf16), (1, 1, 40, 64, f32),
+                               (2, 2048, 4, 16, f32), (1, 2047, 4, 40, f32),
+                               (2, 24, 4, 40, bf16), (1, 2048, 4, 128, f32),
+                               (2, 2047, 2, 128, bf16), (1, 50, 2, 20, bf16),
+                               (1, 2047, 50, 40, f32), (1, 512, 40, 128, bf16)):
         args = rwkv_inputs(b, t, h, dh, dtype, gen)
         y, s = rwkv_scan(*args)
         want_y, want_s = ref.rwkv_scan_ref(*args)
@@ -406,9 +469,14 @@ def check_rwkv_scan(rows: dict) -> None:
     # term factors to v_j sum_i r_i u_i k_i, O(dh) a step, and is left out.
     moved = 5 * n * 4 + h * dh * 4 + b * h * dh * dh * 4
     b_ms, b_by = bound(moved, 5.0 * n * dh, f32)
+    first, second = rwkv_scan(*args), rwkv_scan(*args)
+    ensure(torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]),
+           "rwkv_scan: two calls differ")
     k_ms = device_time_ms(lambda: rwkv_scan(*args), 20)
     p_ms = device_time_ms(lambda: ref.rwkv_scan_ref(*args), 2)
-    say(f"[kernels] rwkv_scan at the serving shape: {k_ms:.4f} ms a launch, plain "
+    cols = column_plan(b, h, dh, build.sm_count(args[0].device))
+    say(f"[kernels] rwkv_scan at the serving shape: two calls bitwise equal; "
+        f"{b * h * -(-dh // cols)} blocks of {cols} state columns; {k_ms:.4f} ms a launch, plain "
         f"version {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
     rows["rwkv_scan"] = row(
         "rwkv_scan", worst[f32], k_ms, p_ms, None, b_ms, b_by,

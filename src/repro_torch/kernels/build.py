@@ -14,6 +14,7 @@ and nowhere else, so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -65,6 +66,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device: the launch plans size their grids by it."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def _nvcc() -> str:

@@ -49,23 +49,70 @@ def test_kv_pack_unpack_bit_exact(cuda, dtype):
 FD_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 
 
+def _fd_inputs(cuda, dtype, b, h, kv, dh, s, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((b, h, dh), (b, s, kv, dh), (b, s, kv, dh))]
+
+
+def _fd_check(q, k, v, pos):
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    rtol, atol = FD_TOL[q.dtype]
+    out = flash_decode(q, k, v, pos).float()
+    want = ref.flash_decode_ref(q, k, v, pos).float()
+    excess = ((out - want).abs() - rtol * want.abs() - atol).max().item()
+    assert excess <= 0, (pos, (out - want).abs().max().item(), excess)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,kv,dh,s", [
     (1, 4, 4, 64, 512), (2, 8, 2, 64, 1000), (2, 16, 8, 128, 512),
     (1, 8, 1, 128, 2048), (2, 10, 2, 128, 300), (3, 8, 2, 16, 77), (1, 8, 2, 256, 130),
 ])
 def test_flash_decode_matches_plain(cuda, dtype, b, h, kv, dh, s):
-    from repro_torch.kernels.flash_decode import flash_decode
-
-    rtol, atol = FD_TOL[dtype]
-    gen = torch.Generator(device=cuda).manual_seed(b * h + s)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
-               for shape in ((b, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    q, k, v = _fd_inputs(cuda, dtype, b, h, kv, dh, s, b * h + s)
     for pos in sorted(p for p in {1, 16, 127, 128, 129, s - s // 3, s} if p <= s):
-        out = flash_decode(q, k, v, pos).float()
-        want = ref.flash_decode_ref(q, k, v, pos).float()
-        excess = ((out - want).abs() - rtol * want.abs() - atol).max().item()
-        assert excess <= 0, (pos, (out - want).abs().max().item(), excess)
+        _fd_check(q, k, v, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,dh,s", [
+    (1, 1, 1, 128, 4096),   # one (batch, KV head): many ranges
+    (4, 40, 8, 128, 4096),  # qwen3-14b: G 5 at dh 128
+    (2, 16, 2, 64, 1024),   # G 8
+    (3, 24, 3, 16, 600),    # G 8, dh 16
+    (2, 12, 4, 256, 700),   # G 3, dh 256
+])
+def test_flash_decode_split_boundaries(cuda, dtype, b, h, kv, dh, s):
+    """K4 where the split shows: one range (pos under one range), pos on a
+    range boundary of a multi-range plan and one past it, and pos = S."""
+    from repro_torch.kernels.flash_decode import plan_for
+
+    q, k, v = _fd_inputs(cuda, dtype, b, h, kv, dh, s, 7 * b + dh)
+    assert plan_for(q, k, s).n_split > 1
+    small = [p for p in range(1, s + 1) if plan_for(q, k, p).n_split == 1]
+    full = [p for p in range(2, s + 1)
+            if (pl := plan_for(q, k, p)).n_split > 1 and pl.n_split * pl.range_len == p]
+    assert small and full
+    cases = {1, small[-1], full[0], full[-1], s} | {p + 1 for p in (full[0], full[-1]) if p < s}
+    for pos in sorted(cases):
+        _fd_check(q, k, v, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_split_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs are bitwise equal, one launch counted a
+    call, with the ranges merged in one fixed order."""
+    from repro_torch.kernels import flash_decode as fd
+
+    q, k, v = _fd_inputs(cuda, dtype, 4, 40, 8, 128, 4096, 3)
+    assert fd.plan_for(q, k, 2056).n_split > 1
+    before = build.LAUNCHES["flash_decode"]
+    first = fd.flash_decode(q, k, v, 2056)
+    second = fd.flash_decode(q, k, v, 2056)
+    assert build.LAUNCHES["flash_decode"] == before + 2
+    assert torch.equal(first, second)
 
 
 def test_flash_decode_rejects(cuda):
@@ -253,30 +300,60 @@ def test_waterfill_wrappers_read_nothing_back(cuda):
 RWKV_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
 
 
+def _rwkv_inputs(cuda, dtype, b, t, h, dh, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r, k, v = (0.3 * torch.randn((b, t, h, dh), generator=gen, device=cuda) for _ in range(3))
+    w = 0.5 * torch.sigmoid(torch.randn((b, t, h, dh), generator=gen, device=cuda)) + 0.45
+    u = 0.3 * torch.randn((h, dh), generator=gen, device=cuda)
+    return [a.to(dtype) for a in (r, k, v, w)] + [u]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,t,h,dh", [
     (1, 128, 2, 64), (2, 256, 3, 64), (1, 512, 1, 128), (2, 24, 2, 64), (1, 77, 3, 128),
     (2, 33, 2, 40), (1, 1, 4, 16),
+    # column groups of 16: dh 16 (one), 40 (a short last group), 128
+    # (eight); T 1, 24, 2047 and 2048 across the staged chunks; B 2; and
+    # dh 20, whose bf16 rows are no whole number of 16-byte pieces
+    (2, 2048, 2, 16), (1, 2047, 2, 40), (2, 24, 3, 40), (1, 2048, 1, 128),
+    (2, 1, 2, 128), (2, 2047, 1, 128), (1, 50, 2, 20),
+    # 24 and 32 columns a block (more heads than 16-column blocks fit in
+    # one wave): dh 40 and 64 in groups of 24 (short last groups), dh 128
+    # in groups of 32
+    (1, 100, 50, 40), (1, 300, 40, 64), (1, 64, 40, 128),
 ])
 def test_rwkv_scan_matches_plain(cuda, dtype, b, t, h, dh):
     """K7 against its plain version: dh 64 and 128 and padded widths, ragged
     T, f32 and bf16 inputs."""
     from repro_torch.kernels.rwkv_scan import rwkv_scan
 
-    gen = torch.Generator(device=cuda).manual_seed(b * t + h * dh)
-    r, k, v = (0.3 * torch.randn((b, t, h, dh), generator=gen, device=cuda) for _ in range(3))
-    w = 0.5 * torch.sigmoid(torch.randn((b, t, h, dh), generator=gen, device=cuda)) + 0.45
-    u = 0.3 * torch.randn((h, dh), generator=gen, device=cuda)
-    args = [a.to(dtype) for a in (r, k, v, w)] + [u]
+    args = _rwkv_inputs(cuda, dtype, b, t, h, dh, b * t + h * dh)
     before = build.LAUNCHES["rwkv_scan"]
     y, s = rwkv_scan(*args)
     assert build.LAUNCHES["rwkv_scan"] == before + 1
     want_y, want_s = ref.rwkv_scan_ref(*args)
     assert y.dtype == dtype and s.dtype == torch.float32
+    assert y.shape == want_y.shape and s.shape == want_s.shape
     rtol, atol = RWKV_TOL[dtype]
     excess = ((y.float() - want_y.float()).abs() - rtol * want_y.float().abs() - atol).max()
     assert excess.item() <= 0, (y.float() - want_y.float()).abs().max().item()
     torch.testing.assert_close(s, want_s, rtol=0.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rwkv_scan_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs are bitwise equal, also on an input
+    that is not 16-byte aligned (the wrapper realigns a copy)."""
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+
+    args = _rwkv_inputs(cuda, dtype, 1, 2048, 40, 64, 5)
+    first, second = rwkv_scan(*args), rwkv_scan(*args)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    flat = torch.cat([torch.zeros(1, device=cuda, dtype=dtype), args[0].flatten()])
+    shifted = flat[1:].view(args[0].shape)
+    assert shifted.data_ptr() % 16
+    moved = rwkv_scan(shifted, *args[1:])
+    assert torch.equal(moved[0], first[0]) and torch.equal(moved[1], first[1])
 
 
 def test_rwkv_scan_rejects(cuda):

@@ -1,0 +1,145 @@
+"""The launch plans the CUDA wrappers compute on the host, on the CPU.
+
+``kernels/flash_decode.py::split_plan`` cuts the first ``pos`` keys of each
+(batch, KV head) into the ranges of K4's split kernel, for a given SM count;
+``kernels/rwkv_scan.py::column_plan`` sizes K7's groups of state columns and
+``padded_width`` rounds K7's head width up to whole 16-byte rows.  None
+reaches the card, so all are held here: the ranges and column groups cover
+their span exactly once, none is empty, a range fits a block's
+shared-memory tile, and the grid fits CUDA's launch limits.
+"""
+
+import pytest
+from hypothesis_compat import given, settings, st
+
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import rwkv_scan as rk
+from repro_torch.kernels.rwkv_scan import MAX_HEAD_DIM, padded_width
+
+H100_SMS = 132
+
+
+def _ranges(plan, pos):
+    return [(i * plan.range_len, min((i + 1) * plan.range_len, pos))
+            for i in range(plan.n_split)]
+
+
+def _check_plan(batch, n_kv, pos, n_sm, row_bytes):
+    plan = fd.split_plan(batch, n_kv, pos, n_sm, row_bytes)
+    ranges = _ranges(plan, pos)
+    covered = [t for lo, hi in ranges for t in range(lo, hi)]
+    assert covered == list(range(pos)), plan            # [0, pos) once, in order
+    assert all(hi > lo for lo, hi in ranges), plan      # no range is empty
+    assert 1 <= plan.range_len <= fd.MAX_RANGE
+    assert plan.range_len * row_bytes <= max(fd.TILE_BYTES, row_bytes)
+    assert 1 <= plan.n_split <= fd.MAX_GRID_Y
+    assert batch * n_kv <= fd.MAX_GRID_X
+    return plan
+
+
+# (batch, KV heads, pos, SMs, row bytes): the qwen3-14b decode shapes in
+# bf16 (rows of 256 bytes) and f32, one (batch, KV head), the widest and
+# narrowest rows the kernel takes, pos of 1, around range edges, and long.
+@pytest.mark.parametrize("batch,n_kv,pos,n_sm,row_bytes", [
+    (4, 8, 2056, H100_SMS, 256), (4, 8, 2048, H100_SMS, 256), (4, 8, 4096, H100_SMS, 256),
+    (4, 8, 2056, H100_SMS, 512), (1, 8, 2049, H100_SMS, 256), (1, 1, 4096, H100_SMS, 256),
+    (1, 1, 1, H100_SMS, 256), (4, 8, 1, H100_SMS, 256), (4, 8, 15, H100_SMS, 256),
+    (4, 8, 16, H100_SMS, 256), (4, 8, 17, H100_SMS, 256), (2, 2, 300, H100_SMS, 1024),
+    (3, 3, 600, H100_SMS, 32), (64, 8, 4096, H100_SMS, 256), (1, 1, 131072, H100_SMS, 1024),
+    (2, 4, 777, 1, 256), (2, 4, 777, 7, 64), (512, 64, 8192, H100_SMS, 256),
+])
+def test_split_plan_covers_pos(batch, n_kv, pos, n_sm, row_bytes):
+    _check_plan(batch, n_kv, pos, n_sm, row_bytes)
+
+
+@settings(max_examples=300, deadline=None)
+@given(batch=st.integers(1, 64), n_kv=st.integers(1, 16), pos=st.integers(1, 20000),
+       n_sm=st.integers(1, 200), row_bytes=st.sampled_from([32, 64, 128, 256, 512, 1024]))
+def test_split_plan_covers_pos_property(batch, n_kv, pos, n_sm, row_bytes):
+    _check_plan(batch, n_kv, pos, n_sm, row_bytes)
+
+
+def test_split_plan_at_the_serving_shape():
+    """qwen3-14b decode at pos 2056 in bf16: the 32 (batch, KV head) pairs
+    get 17 balanced ranges of 121 keys, 544 blocks on 132 SMs, where the
+    first design launched 32."""
+    plan = fd.split_plan(4, 8, 2056, H100_SMS, 128 * 2)
+    assert plan == fd.SplitPlan(17, 121)
+    assert 4 * 8 * plan.n_split == 544 > 4 * 8
+
+
+def test_split_plan_fills_the_card_and_keeps_short_caches_whole():
+    # A pos under one range is one range: its block writes the output, with
+    # no partials to merge.
+    for pos in range(1, fd.MIN_RANGE + 1):
+        assert fd.split_plan(4, 8, pos, H100_SMS, 256).n_split == 1
+    # More ranges on a card with more SMs, never fewer.
+    counts = [fd.split_plan(1, 8, 3000, n, 256).n_split for n in (1, 16, 66, 132, 264)]
+    assert counts == sorted(counts) and counts[0] < counts[-1]
+    # At least BLOCKS_PER_SM blocks an SM where the keys allow it.
+    plan = fd.split_plan(1, 8, 3000, H100_SMS, 256)
+    assert 8 * plan.n_split >= fd.BLOCKS_PER_SM * H100_SMS
+
+
+@pytest.mark.parametrize("args", [
+    (4, 8, 0, H100_SMS, 256), (0, 8, 10, H100_SMS, 256), (4, 8, 10, 0, 256),
+    (4, 8, 10, H100_SMS, 0), (1, 1, fd.MAX_GRID_Y * fd.MAX_RANGE + 1, H100_SMS, 16),
+])
+def test_split_plan_rejects(args):
+    with pytest.raises(ValueError):
+        fd.split_plan(*args)
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+def test_rwkv_padded_width(element_size):
+    """K7 runs dh rounded up to whole 16-byte rows, never wider than it
+    must, and the widths it runs stay within its 128-row state."""
+    per = 16 // element_size
+    for dh in range(1, MAX_HEAD_DIM + 1):
+        width = padded_width(dh, element_size)
+        assert width * element_size % 16 == 0
+        assert dh <= width < dh + per
+        assert width <= MAX_HEAD_DIM
+        assert (width == dh) == (dh % per == 0)
+
+
+def _check_columns(batch, n_heads, dh, n_sm):
+    width = rk.column_plan(batch, n_heads, dh, n_sm)
+    assert width in rk.COLUMN_WIDTHS
+    groups = [(c, min(c + width, dh)) for c in range(0, dh, width)]
+    assert [j for lo, hi in groups for j in range(lo, hi)] == list(range(dh))
+    assert all(hi > lo for lo, hi in groups)
+    blocks = batch * n_heads * len(groups)
+    assert 1 <= blocks <= rk.MAX_GRID_X
+    for other in rk.COLUMN_WIDTHS:  # no width puts fewer blocks on the busiest SM
+        other_blocks = batch * n_heads * -(-dh // other)
+        assert -(-blocks // n_sm) <= -(-other_blocks // n_sm)
+    return width, blocks
+
+
+@pytest.mark.parametrize("batch,n_heads,dh,n_sm,want", [
+    (1, 40, 64, H100_SMS, 24),    # rwkv6-3b prefill: 120 blocks, one an SM
+    (1, 4, 64, H100_SMS, 16),     # one wave either way: the narrowest
+    (2, 40, 64, H100_SMS, 24),    # 240 blocks, 2 an SM, as 160 of 32 (320 of 16: 3)
+    (1, 50, 40, H100_SMS, 24),    # dh 40: 100 blocks against 150
+    (1, 40, 128, H100_SMS, 24),   # 240 blocks, 2 an SM, as 160 of 32
+    (2, 2, 16, H100_SMS, 16),     # one group whatever the width
+    (8, 40, 64, H100_SMS, 32),
+    (1, 33, 64, H100_SMS, 16),    # 132 blocks of 16 fill the card once
+])
+def test_column_plan(batch, n_heads, dh, n_sm, want):
+    assert _check_columns(batch, n_heads, dh, n_sm)[0] == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(batch=st.integers(1, 16), n_heads=st.integers(1, 128), dh=st.integers(1, 128),
+       n_sm=st.integers(1, 200))
+def test_column_plan_property(batch, n_heads, dh, n_sm):
+    _check_columns(batch, n_heads, dh, n_sm)
+
+
+@pytest.mark.parametrize("args", [(0, 40, 64, H100_SMS), (1, 0, 64, H100_SMS),
+                                  (1, 40, 0, H100_SMS), (1, 40, 64, 0)])
+def test_column_plan_rejects(args):
+    with pytest.raises(ValueError):
+        rk.column_plan(*args)
