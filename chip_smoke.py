@@ -35,7 +35,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
               minimum; launch count of netkv_score_cohort
  10. sweep    exp11's FULL grid (54 scenarios, 1400 steps of 0.01 s) through
               ScenarioPlane(backend="kernel"): first waterfill_fast against
-              its plain version at the grid's shape, then the sweep twice
+              its plain version at the grid's shape and on three tables past
+              its shared-memory layout, in both its device-memory layouts
+              (f32 and f64, rtol 1e-4; two calls
+              bitwise equal; its plan, and one device op a call in the
+              profiler), then the sweep twice
               (waterfill_fast launched once a step; the second call's wall
               and scenarios/s), sanity, and the summaries against the f64
               backend="torch" sweep on the card
@@ -46,7 +50,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
               host-clock decision latencies; each FlowPlane fixed point of
               the card runs is recomputed by waterfill_progressive and held
               to the plane's rates (rtol 1e-4); then waterfill_progressive
-              against its plain version on those tables
+              bitwise against its plain version on those tables and on its
+              shape edges (one flow, F and L+1 past 256, no active flow,
+              pad-only paths, both layouts past shared memory), two calls
+              bitwise equal, one device op a call in the profiler, and its
+              device_time_ms beside the traced device time
  12. one JSON line ``{"kernels": [...]}``
  13. last line ``{"ok": true, "device": {...}}``
 
@@ -646,32 +654,53 @@ def kernel_class(name: str) -> str:
 
 
 def traced(fn, n: int) -> dict:
-    """Run ``fn`` ``n`` times under ``torch.profiler``: device time by kernel
+    """Run ``fn`` ``n`` times under ``torch.profiler``, after ``n`` untraced
+    warm-up calls under it: device time by kernel
     class, summed over device-side events only (kernels, copies, fills) so
-    that the time a host op attributes to its kernel is not counted twice,
-    and the device's busy share of the traced window."""
+    that the time a host op attributes to its kernel is not counted twice;
+    the device events and the runtime's launch, copy and fill calls a call;
+    the device time of each class a device event; and the device's busy
+    share of the traced window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    # One warm-up step of n calls before the traced one: a trace started cold
+    # lost the device events of short calls (all 20 of waterfill_progressive
+    # once).  A warm trace may still lose a few (3 of 20), so ms_per_event
+    # gives a kernel's time a launch.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in range(2):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
     by_class: dict[str, float] = {}
+    count: dict[str, int] = {}
+    calls: dict[str, int] = {}
     top = []
     for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and ev.key.startswith("cuda") and any(
+                k in ev.key for k in ("Launch", "Memset", "Memcpy")):
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
         us = ev.self_device_time_total
-        if ev.device_type != DeviceType.CUDA or us <= 0 or ev.key == "Command Buffer Full":
+        if (ev.device_type != DeviceType.CUDA or us <= 0 or ev.key == "Command Buffer Full"
+                or ev.key.startswith("ProfilerStep")):
             continue
-        by_class[kernel_class(ev.key)] = by_class.get(kernel_class(ev.key), 0.0) + us
+        cls = kernel_class(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        count[cls] = count.get(cls, 0) + ev.count
         top.append((us, ev.count, ev.key))
     busy_ms = sum(by_class.values()) / 1e3
     ensure(busy_ms > 0, "the trace holds no device time")
     return dict(wall_ms=wall_ms / n, device_ms=busy_ms / n, busy_share=busy_ms / wall_ms,
                 by_class_ms={k: v / 1e3 / n for k, v in sorted(by_class.items())},
+                events_per_call={k: v / n for k, v in sorted(count.items())},
+                ms_per_event={k: by_class[k] / 1e3 / count[k] for k in sorted(count)},
+                runtime_per_call={k: v / n for k, v in sorted(calls.items())},
                 top=sorted(top, reverse=True)[:8])
 
 
@@ -781,25 +810,70 @@ def fast_inputs(plane, seed: int = 0):
                  for a in (caps.astype(np.float32), active, nh))
 
 
+def one_launch(per_call: dict, tr: dict, name: str) -> float:
+    """A wrapper's call is one kernel launch and no other device op: one
+    runtime launch call a call and no copy or fill, and no device event but
+    its kernel's (the profiler may drop a few of those, so they are not
+    counted).  Returns the launches a call the profiler read."""
+    ensure(per_call == {"cudaLaunchKernel": 1.0}, (f"{name}: runtime calls a call", per_call))
+    events = tr["events_per_call"]
+    ensure(set(events) == {"waterfill"} and 0.0 < events["waterfill"] <= 1.0,
+           (f"{name}: device events a call", events))
+    say(f"[kernels] {name}: kernel launches a call, read from the profiler: "
+        f"{per_call['cudaLaunchKernel']} (device events of the kernel a call: "
+        f"{events['waterfill']})")
+    return per_call["cudaLaunchKernel"]
+
+
+def fast_error(got, caps, active, nh) -> tuple[float, float, float]:
+    """K6 against its plain version in f32 and f64: the inf pattern and zero
+    inactive rows held; returns (max abs err, max rel err f32, f64)."""
+    from repro_torch.kernels import ref
+
+    want = ref.waterfill_rates_fast_ref(caps, active, nh)
+    f64 = ref.waterfill_rates_fast_ref(caps.double(), active, nh.double())
+    ensure(torch.equal(torch.isinf(got), torch.isinf(want)), "waterfill_fast: inf pattern")
+    ensure(torch.equal(torch.isinf(got), torch.isinf(f64)), "waterfill_fast: inf pattern (f64)")
+    ensure(bool((got[~active] == 0).all()), "waterfill_fast: inactive rows carry a rate")
+    fin = torch.isfinite(want)
+    err = (got - want)[fin].abs()
+    rel = (err / want[fin].abs().clamp(min=1e-30)).max().item() if err.numel() else 0.0
+    d64 = (got.double() - f64)[fin].abs() / f64[fin].abs().clamp(min=1e-30)
+    rel64 = d64.max().item() if d64.numel() else 0.0
+    ensure(rel <= 1e-4 and rel64 <= 1e-4, f"waterfill_fast rel err {rel} / f64 {rel64} > 1e-4")
+    return (err.max().item() if err.numel() else 0.0), rel, rel64
+
+
 def check_waterfill_fast(rows: dict, plane) -> None:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.waterfill import waterfill_fast
+    from repro_torch.kernels.waterfill import fast_plan_for, random_incidence, waterfill_fast
 
     caps, active, nh = fast_inputs(plane)
     s, f = active.shape
     l1 = caps.shape[1]
+    plan = fast_plan_for(caps, active)
     got = waterfill_fast(caps, active, nh)
-    want = ref.waterfill_rates_fast_ref(caps, active, nh)
-    f64 = ref.waterfill_rates_fast_ref(caps.double(), active, nh.double())
-    ensure(torch.equal(torch.isinf(got), torch.isinf(want)), "waterfill_fast: inf pattern")
-    fin = torch.isfinite(want)
-    err = (got - want)[fin].abs()
-    rel = (err / want[fin].abs().clamp(min=1e-30)).max().item()
-    rel64 = ((got.double() - f64)[fin].abs() / f64[fin].abs().clamp(min=1e-30)).max().item()
-    ensure(rel <= 1e-4 and rel64 <= 1e-4, f"waterfill_fast rel err {rel} / f64 {rel64} > 1e-4")
-    ensure(bool((got[~active] == 0).all()), "waterfill_fast: inactive rows carry a rate")
+    err, rel, rel64 = fast_error(got, caps, active, nh)
+    ensure(torch.equal(got, waterfill_fast(caps, active, nh)), "waterfill_fast: two calls differ")
     say(f"[kernels] waterfill_fast S {s} x F {f} x L+1 {l1}: {int(active.sum())} active flows, "
-        f"max rel err {rel:.3g} vs plain f32, {rel64:.3g} vs f64 (rtol 1e-4)")
+        f"max rel err {rel:.3g} vs plain f32, {rel64:.3g} vs f64 (rtol 1e-4); two calls "
+        f"bitwise equal; plan {plan._asdict()}")
+    # Tables past shared memory: the slab, then the state and masks, in
+    # device memory.
+    seen = set()
+    for shape in ((2, 1100, 300), (1, 3000, 1500), (1, 64, 14000)):
+        caps_b, active_b, nh_b = random_incidence(*shape, seed=sum(shape))
+        big = tuple(torch.from_numpy(a).cuda() for a in (caps_b.astype(np.float32), active_b, nh_b))
+        big_plan = fast_plan_for(big[0], big[1])
+        seen.add(big_plan.layout)
+        out = waterfill_fast(*big)
+        ensure(bool((torch.isfinite(out) & (out > 0)).any()), "waterfill_fast: no finite rate")
+        _, b_rel, b_rel64 = fast_error(out, *big)
+        ensure(torch.equal(out, waterfill_fast(*big)), "waterfill_fast: two calls differ (large)")
+        say(f"[kernels] waterfill_fast S {shape[0]} x F {shape[1]} x L+1 {shape[2]}: layout "
+            f"{big_plan.layout}, max rel err {b_rel:.3g} vs plain f32, {b_rel64:.3g} vs f64 "
+            f"(rtol 1e-4); two calls bitwise equal")
+    ensure(seen == {"masks", "global"}, ("a layout went untested", seen))
     moved = caps.numel() * 4 + active.numel() + nh.numel() * 4 + got.numel() * 4
     # Operations: at least one round's pass over the incidence table (a
     # multiply and an add per entry for the used capacity).
@@ -807,12 +881,16 @@ def check_waterfill_fast(rows: dict, plane) -> None:
     k_ms = device_time_ms(lambda: waterfill_fast(caps, active, nh), 200)
     p_ms = wall_time_ms(lambda: ref.waterfill_rates_fast_ref(caps, active, nh), 10)
     tr = traced(lambda: waterfill_fast(caps, active, nh), 20)
-    only = tr["by_class_ms"].get("waterfill", 0.0)
-    say(f"[kernels] waterfill_fast: {k_ms:.4f} ms a call on the device (kernel {only:.4f} ms, "
-        f"the wrapper's masking the rest), plain version {p_ms:.3f} ms wall")
-    rows["waterfill_fast"] = row("waterfill_fast", err.max().item(), k_ms, p_ms, None,
+    per_call = tr["runtime_per_call"]
+    launches = one_launch(per_call, tr, "waterfill_fast")
+    only = tr["ms_per_event"]["waterfill"]
+    say(f"[kernels] waterfill_fast: {k_ms:.4f} ms a call on the device (kernel {only:.4f} ms in "
+        f"the profiler); runtime calls a call {per_call}, device events a call "
+        f"{tr['events_per_call']}; plain version {p_ms:.3f} ms wall")
+    rows["waterfill_fast"] = row("waterfill_fast", err, k_ms, p_ms, None,
                                  b_ms, b_by, shape=f"S {s} x F {f} x L+1 {l1} f32",
-                                 kernel_only_ms=only,
+                                 kernel_only_ms=only, layout=plan.layout,
+                                 launches_a_call=launches,
                                  library="none: no single PyTorch call computes the fixed point")
 
 
@@ -998,42 +1076,80 @@ def phase_simulate():
     return launches, tables
 
 
-def check_waterfill_progressive(rows: dict, tables) -> None:
+def progressive_bitwise(args) -> int:
+    """K5 against its plain version, bit for bit; returns the rounds."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.waterfill import waterfill_progressive
 
-    def on_card(paths, caps):
+    rates, tl, ts, rounds = waterfill_progressive(*args)
+    p_rates, p_tl, p_ts, p_r = ref.waterfill_fixed_point_ref(*args)
+    ensure(int(rounds[0]) == p_r, ("rounds", int(rounds[0]), p_r))
+    ensure(torch.equal(rates, p_rates) and torch.equal(ts, p_ts),
+           "waterfill_progressive rates/shares differ from the plain version")
+    ensure(torch.equal(tl, p_tl), "waterfill_progressive trace links differ")
+    ensure(bool((rates[~args[2]] == 0).all()), "waterfill_progressive: inactive rows carry a rate")
+    return p_r
+
+
+def check_waterfill_progressive(rows: dict, tables) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.waterfill import (random_flow_table, waterfill_progressive,
+                                               waterfill_progressive_plan)
+
+    def on_card(paths, caps, active=None):
+        active = np.ones(len(paths), bool) if active is None else active
         return (torch.from_numpy(paths).cuda(), torch.from_numpy(caps).float().cuda(),
-                torch.ones(len(paths), dtype=torch.bool).cuda())
+                torch.from_numpy(active).cuda())
 
     for paths, caps in tables[::max(1, len(tables) // 200)]:
-        args = on_card(paths, caps)
-        rates, tl, ts, rounds = waterfill_progressive(*args)
-        p_rates, p_tl, p_ts, p_r = ref.waterfill_fixed_point_ref(*args)
-        ensure(int(rounds[0]) == p_r, ("rounds", int(rounds[0]), p_r))
-        ensure(torch.equal(rates, p_rates) and torch.equal(ts, p_ts),
-               "waterfill_progressive rates/shares differ from the plain version")
-        ensure(torch.equal(tl, p_tl), "waterfill_progressive trace links differ")
+        progressive_bitwise(on_card(paths, caps))
+    # The shape edges: one flow, more flows and links than threads, every
+    # flow inactive, flows only on the pad link, and the two layouts past
+    # shared memory.
+    edges = {"F 1": random_flow_table(20, n_flows=1),
+             "F 300 x L+1 281": random_flow_table(21, 300, 280),
+             "inactive": random_flow_table(22), "pad only": random_flow_table(23),
+             "paths layout": random_flow_table(24, 9000, 2000),
+             "global layout": random_flow_table(25, 500, 15000)}
+    edges["inactive"][2][:] = False
+    edges["pad only"][0][:] = len(edges["pad only"][1]) - 1
+    seen = []
+    for label, (paths, caps, active) in edges.items():
+        plan = waterfill_progressive_plan(*paths.shape, len(caps))
+        r = progressive_bitwise(on_card(paths, caps, active))
+        seen.append(f"{label} ({plan.layout}, {r} rounds)")
+    ensure({"paths", "global"} <= {waterfill_progressive_plan(*p.shape, len(c)).layout
+                                   for p, c, _ in edges.values()}, "a layout went untested")
     paths, caps = max(tables, key=lambda t: len(t[0]))
     args = on_card(paths, caps)
+    first, second = waterfill_progressive(*args), waterfill_progressive(*args)
+    ensure(all(torch.equal(a, b) for a, b in zip(first, second)),
+           "waterfill_progressive: two calls differ")
     f, h = paths.shape
     l1 = len(caps)
+    plan = waterfill_progressive_plan(f, h, l1)
     say(f"[kernels] waterfill_progressive: {min(len(tables), 200)} FlowPlane tables "
-        f"(up to F {f} x H {h}, L+1 {l1}): rates, shares, trace links and rounds bitwise "
-        f"equal to the plain version")
+        f"(up to F {f} x H {h}, L+1 {l1}) and the edges {', '.join(seen)}: rates, shares, "
+        f"trace links and rounds bitwise equal to the plain version; two calls bitwise "
+        f"equal; plan {plan._asdict()}")
     moved = paths.size * 4 + l1 * 4 + f + f * 4 + 2 * f * 4 + 4
     b_ms, b_by = bound(moved, float(l1 * f), torch.float32)
     k_ms = device_time_ms(lambda: waterfill_progressive(*args), 200)
+    k_ms20 = device_time_ms(lambda: waterfill_progressive(*args), 20)
     p_ms = wall_time_ms(lambda: ref.waterfill_fixed_point_ref(*args), 5)
     tr = traced(lambda: waterfill_progressive(*args), 20)
+    per_call = tr["runtime_per_call"]
+    launches = one_launch(per_call, tr, "waterfill_progressive")
     rounds = int(waterfill_progressive(*args)[3][0])
-    say(f"[kernels] waterfill_progressive on that table: {rounds} rounds; traced device "
-        f"time {tr['device_ms']:.3f} ms a call, of which the kernel "
-        f"{tr['by_class_ms'].get('waterfill', 0.0):.3f} ms and the wrapper's prep ops the rest")
+    say(f"[kernels] waterfill_progressive on that table: {rounds} rounds; device_time_ms "
+        f"{k_ms:.4f} ms a call over 200 calls ({k_ms20:.4f} over 20); traced, the kernel "
+        f"{tr['ms_per_event']['waterfill']:.4f} ms a launch; runtime calls a call {per_call}, "
+        f"device events a call {tr['events_per_call']}")
     rows["waterfill_progressive"] = row(
         "waterfill_progressive", 0.0, k_ms, p_ms, None, b_ms, b_by,
         shape=f"F {f} x H {h}, L+1 {l1} f32 (largest FlowPlane table), {rounds} rounds",
-        kernel_only_ms=tr["by_class_ms"].get("waterfill", 0.0),
+        kernel_only_ms=tr["ms_per_event"]["waterfill"], ms_20_calls=k_ms20,
+        layout=plan.layout, launches_a_call=launches,
         library="none: no single PyTorch call computes the fixed point")
 
 

@@ -99,8 +99,9 @@ def netkv_score_cohort_ref(free_mem, queued, batch, hit_rows, tier_rows,
 # ------------------------------------------------------------ water-filling
 def waterfill_prep(paths: torch.Tensor, caps: torch.Tensor, active: torch.Tensor):
     """The first-encounter link order of ``FlowPlane._recompute_rates``
-    (``repro/kernels/waterfill.py:119-129``), shared by the plain version
-    and the kernel's wrapper.  No op reads a value back to the host.
+    (``repro/kernels/waterfill.py:119-129``) for the plain version; the
+    kernel builds the same order in its block.  No op reads a value back to
+    the host.
 
     paths (F, H) link ids, short paths padded with the pad link L; caps
     (L + 1,); active (F,) bool.  Returns ``(P, perm, counts0, caps_p0)``:

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.waterfill import random_flow_table, random_incidence
 
 pytestmark = pytest.mark.gpu
 
@@ -186,28 +187,13 @@ def test_model_decode_on_card_matches_cpu(cuda):
     assert build.LAUNCHES["flash_decode"] == before + 4 * cfg.n_layers
 
 
-def _wf_table(seed, n_flows=40, n_links=28, h=6, stall=False):
-    """A random water-filling table; ``stall`` adds flows that cross only the
-    pad link (no finite share: the loop strands them at inf)."""
-    rng = np.random.default_rng(seed)
-    caps = np.append(rng.uniform(1e7, 1e9, n_links), np.inf)
-    paths = np.full((n_flows, h), n_links, np.int32)
-    for f in range(n_flows):
-        plen = int(rng.integers(1, h + 1))
-        paths[f, :plen] = rng.choice(n_links, plen, replace=False)
-    if stall:
-        paths[::7] = n_links
-    active = rng.random(n_flows) < 0.85
-    return paths, caps, active
-
-
 @pytest.mark.parametrize("seed,stall", [(0, False), (1, False), (2, True), (3, True)])
 def test_waterfill_progressive_matches_plain(cuda, seed, stall):
     """K5 against its plain f32 version: every target of a round gets the
     same share, so rates, trace and round count agree bit for bit."""
     from repro_torch.kernels.waterfill import waterfill_progressive
 
-    paths, caps, active = _wf_table(seed, stall=stall)
+    paths, caps, active = random_flow_table(seed, stall=stall)
     args = (torch.from_numpy(paths), torch.from_numpy(caps).float(), torch.from_numpy(active))
     before = build.LAUNCHES["waterfill_progressive"]
     rates, tl, ts, rounds = waterfill_progressive(*(a.to(cuda) for a in args))
@@ -276,7 +262,7 @@ def test_waterfill_wrappers_read_nothing_back(cuda):
     host no round trip."""
     from repro_torch.kernels.waterfill import waterfill_fast, waterfill_progressive
 
-    paths, caps, active = _wf_table(4)
+    paths, caps, active = random_flow_table(4)
     args = (torch.from_numpy(paths).to(cuda), torch.from_numpy(caps).float().to(cuda),
             torch.from_numpy(active).to(cuda))
     nh = torch.zeros((2, 3, 5), device=cuda)
@@ -292,6 +278,99 @@ def test_waterfill_wrappers_read_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def _wf_check_bitwise(cuda, paths, caps, active, layout=None):
+    """K5 on the card against its plain version, bit for bit, one launch."""
+    from repro_torch.kernels.waterfill import waterfill_progressive, waterfill_progressive_plan
+
+    args = (torch.from_numpy(paths), torch.from_numpy(caps).float(), torch.from_numpy(active))
+    plan = waterfill_progressive_plan(*paths.shape, len(caps))
+    if layout is not None:
+        assert plan.layout == layout, plan
+    before = build.LAUNCHES["waterfill_progressive"]
+    rates, tl, ts, rounds = waterfill_progressive(*(a.to(cuda) for a in args))
+    assert build.LAUNCHES["waterfill_progressive"] == before + 1
+    p_rates, p_tl, p_ts, p_r = ref.waterfill_fixed_point_ref(*(a.to(cuda) for a in args))
+    assert int(rounds[0]) == p_r
+    assert torch.equal(rates, p_rates) and torch.equal(tl, p_tl) and torch.equal(ts, p_ts)
+    assert torch.all(rates.cpu()[~args[2]] == 0)
+    return rates, p_r
+
+
+@pytest.mark.parametrize("case", ["f1", "wide", "inactive", "pad_only", "paths", "global"])
+def test_waterfill_progressive_edges(cuda, case):
+    """K5's shape edges, each bitwise its plain version: one flow; more
+    flows and links than 256 threads; every flow inactive; flows only on the
+    pad link (no finite share: every active flow stranded at inf); and
+    tables past the shared-memory layout (the paths re-read from device
+    memory; the link state in device scratch too)."""
+    if case == "f1":
+        paths, caps, active = random_flow_table(10, n_flows=1)
+        active[:] = True
+    elif case == "wide":
+        paths, caps, active = random_flow_table(11, n_flows=300, n_links=280)
+    elif case == "inactive":
+        paths, caps, active = random_flow_table(12)
+        active[:] = False
+    elif case == "pad_only":
+        paths, caps, active = random_flow_table(13)
+        paths[:] = len(caps) - 1
+    elif case == "paths":
+        paths, caps, active = random_flow_table(14, n_flows=9000, n_links=2000)
+    else:
+        paths, caps, active = random_flow_table(15, n_flows=500, n_links=15000)
+    layout = {"paths": "paths", "global": "global"}.get(case, "shared")
+    rates, rounds = _wf_check_bitwise(cuda, paths, caps, active, layout)
+    if case == "inactive":
+        assert rounds == 0 and torch.all(rates == 0)
+    if case == "pad_only":
+        assert rounds == 0 and torch.all(torch.isinf(rates.cpu()[torch.from_numpy(active)]))
+    if case == "f1":
+        assert rounds == 1
+
+
+def test_waterfill_progressive_is_deterministic(cuda):
+    """Two calls on the same inputs are bitwise equal, one launch counted a
+    call."""
+    from repro_torch.kernels.waterfill import waterfill_progressive
+
+    paths, caps, active = random_flow_table(16, n_flows=112, n_links=120)
+    args = [torch.from_numpy(a).to(cuda) for a in (paths, caps.astype(np.float32), active)]
+    before = build.LAUNCHES["waterfill_progressive"]
+    first, second = waterfill_progressive(*args), waterfill_progressive(*args)
+    assert build.LAUNCHES["waterfill_progressive"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("s,f,lp1,layout", [
+    (1, 40, 30, "shared"),       # one scenario
+    (3, 300, 58, "shared"),      # more flows than threads
+    (4, 119, 100, "shared"),     # links past one 32- or 64-bit mask word
+    (2, 1100, 300, "masks"),     # the slab read from device memory
+    (1, 3000, 1500, "global"),   # the state and masks in device scratch too
+    (1, 64, 14000, "global"),    # a state past shared memory on its own
+])
+def test_waterfill_fast_shapes(cuda, s, f, lp1, layout):
+    """K6 against its plain version in f32 and f64 (rtol 1e-4, infinities
+    in the same places, zero rates on inactive rows) across its layouts, a
+    hop count of 2 on one link included; two calls bitwise equal."""
+    from repro_torch.kernels.waterfill import fast_plan_for, waterfill_fast
+
+    caps, active, nh = random_incidence(s, f, lp1, 7 * s + f)
+    t = [torch.from_numpy(a).to(cuda) for a in (caps.astype(np.float32), active, nh)]
+    assert fast_plan_for(t[0], t[1]).layout == layout
+    before = build.LAUNCHES["waterfill_fast"]
+    got = waterfill_fast(*t)
+    assert build.LAUNCHES["waterfill_fast"] == before + 1
+    want = ref.waterfill_rates_fast_ref(*t)
+    f64 = ref.waterfill_rates_fast_ref(t[0].double(), t[1], t[2].double())
+    for other in (want, f64.float()):
+        assert torch.equal(torch.isinf(got), torch.isinf(other))
+        torch.testing.assert_close(got, other, rtol=1e-4, atol=0.0)
+    assert torch.all(got[~t[1]] == 0)
+    assert bool((torch.isfinite(got) & (got > 0)).any())
+    assert torch.equal(got, waterfill_fast(*t))
 
 
 # y in bf16: both versions sum in f32 and round once, so they may differ by

@@ -3,10 +3,13 @@
 ``kernels/flash_decode.py::split_plan`` cuts the first ``pos`` keys of each
 (batch, KV head) into the ranges of K4's split kernel, for a given SM count;
 ``kernels/rwkv_scan.py::column_plan`` sizes K7's groups of state columns and
-``padded_width`` rounds K7's head width up to whole 16-byte rows.  None
-reaches the card, so all are held here: the ranges and column groups cover
-their span exactly once, none is empty, a range fits a block's
-shared-memory tile, and the grid fits CUDA's launch limits.
+``padded_width`` rounds K7's head width up to whole 16-byte rows;
+``kernels/waterfill.py::waterfill_progressive_plan`` and
+``waterfill_fast_plan`` place K5's and K6's arrays in shared or device
+memory.  None reaches the card, so all are held here: the ranges and column
+groups cover their span exactly once, none is empty, a range fits a block's
+shared-memory tile, a block's shared bytes stay within the card's 227 KB,
+and the grid fits CUDA's launch limits.
 """
 
 import pytest
@@ -14,6 +17,7 @@ from hypothesis_compat import given, settings, st
 
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import rwkv_scan as rk
+from repro_torch.kernels import waterfill as wf
 from repro_torch.kernels.rwkv_scan import MAX_HEAD_DIM, padded_width
 
 H100_SMS = 132
@@ -143,3 +147,111 @@ def test_column_plan_property(batch, n_heads, dh, n_sm):
 def test_column_plan_rejects(args):
     with pytest.raises(ValueError):
         rk.column_plan(*args)
+
+
+# ------------------------------------------------- water-filling (K5, K6)
+def _check_progressive(n_flows, n_hops, n_links1):
+    plan = wf.waterfill_progressive_plan(n_flows, n_hops, n_links1)
+    links = 16 * n_links1 + n_flows            # link state and flags, unpadded
+    paths = 4 * n_flows * n_hops
+    assert plan.smem_bytes <= wf.SMEM_MAX
+    assert plan.threads % 32 == 0 and wf.MIN_THREADS <= plan.threads <= wf.MAX_THREADS
+    if plan.layout == "shared":
+        assert plan.smem_bytes >= links + paths and plan.scratch_bytes == 0
+    elif plan.layout == "paths":
+        assert plan.smem_bytes >= links and plan.scratch_bytes == 0
+        assert wf.RED_BYTES + links + paths > wf.SMEM_MAX   # only where they do not fit
+    else:
+        assert plan.layout == "global" and plan.scratch_bytes >= links
+        assert wf.RED_BYTES + links > wf.SMEM_MAX
+    return plan
+
+
+def _check_fast(n_scen, n_flows, n_links1, n_sm):
+    plan = wf.waterfill_fast_plan(n_scen, n_flows, n_links1, n_sm)
+    z = wf.fast_sizes(n_flows, n_links1)
+    assert plan.smem_bytes <= wf.SMEM_MAX
+    assert plan.threads % 32 == 0 and wf.MIN_THREADS <= plan.threads <= wf.MAX_THREADS
+    assert plan.lanes in (1, 2, 4, 8, 16, 32) and plan.threads % plan.lanes == 0
+    assert plan.lanes == 1 or plan.threads // plan.lanes >= n_links1   # a group a link
+    inside = {"global": [], "masks": [z.state, z.masks],
+              "shared": [z.state, z.masks, z.slab]}[plan.layout]
+    assert plan.smem_bytes == sum(inside)
+    assert plan.scratch_bytes == (z.state + z.masks) - sum(inside[:2])
+    # Every array of a region, one bit a mask entry and 4 bytes an f32.
+    assert z.state >= 13 * n_links1 + 9 * n_flows
+    assert z.masks >= (n_flows * n_links1) // 4
+    assert z.slab >= 4 * n_flows * n_links1 + 16
+    return plan
+
+
+def test_waterfill_fast_plan_at_the_sweep_shape():
+    """exp11's sweep step (54 scenarios, 119 flows, 57 links + pad): the
+    state, masks and slab all in shared memory, ~33 KB a block, 4 lanes a
+    link on 256 threads."""
+    plan = _check_fast(54, 119, 58, H100_SMS)
+    assert plan.layout == "shared"
+    assert plan.smem_bytes <= 227 * 1024 and plan.smem_bytes < 34 * 1024
+    assert (plan.threads, plan.lanes) == (256, 4)
+
+
+def test_waterfill_progressive_plan_at_the_largest_flowplane_table():
+    """The largest FlowPlane table of the simulate phase (112 flows x 6
+    hops, 121 links): everything in shared memory, one block of 256."""
+    plan = _check_progressive(112, 6, 121)
+    assert plan.layout == "shared" and plan.scratch_bytes == 0
+    assert plan.smem_bytes < 8 * 1024 and plan.threads == 256
+
+
+@pytest.mark.parametrize("args,layout", [
+    ((9000, 6, 2001), "paths"), ((500, 6, 15001), "global"), ((200000, 1, 10), "paths"),
+    ((0, 6, 1), "shared"), ((1, 6, 29), "shared"), ((300, 6, 281), "shared"),
+])
+def test_waterfill_progressive_plan_large_tables(args, layout):
+    """Tables past shared memory take the device-memory layouts instead of
+    raising."""
+    assert _check_progressive(*args).layout == layout
+
+
+@pytest.mark.parametrize("args,layout", [
+    ((2, 1100, 300, H100_SMS), "masks"), ((1, 3000, 1500, H100_SMS), "global"),
+    ((1, 20000, 8000, H100_SMS), "global"),
+    ((1, 64, 14000, H100_SMS), "global"),    # the state alone past shared memory
+    ((0, 10, 5, H100_SMS), "shared"),
+    ((1, 0, 1, H100_SMS), "shared"), ((7, 300, 130, H100_SMS), "shared"),
+    # more scenarios than SMs: two blocks an SM must both fit, so the slab
+    # of (200, 119, 58)'s blocks stays and (200, 300, 130)'s goes; eight,
+    # and (1000, 119, 58)'s goes too
+    ((200, 119, 58, H100_SMS), "shared"), ((200, 300, 130, H100_SMS), "masks"),
+    ((1000, 119, 58, H100_SMS), "masks"),
+])
+def test_waterfill_fast_plan_large_tables(args, layout):
+    assert _check_fast(*args).layout == layout
+
+
+@settings(max_examples=300, deadline=None)
+@given(n_scen=st.integers(0, 5000), n_flows=st.integers(0, 30000),
+       n_links1=st.integers(1, 30000), n_sm=st.integers(1, 200))
+def test_waterfill_fast_plan_property(n_scen, n_flows, n_links1, n_sm):
+    _check_fast(n_scen, n_flows, n_links1, n_sm)
+
+
+@settings(max_examples=300, deadline=None)
+@given(n_flows=st.integers(0, 300000), n_hops=st.integers(0, 16),
+       n_links1=st.integers(1, 40000))
+def test_waterfill_progressive_plan_property(n_flows, n_hops, n_links1):
+    _check_progressive(n_flows, n_hops, n_links1)
+
+
+@pytest.mark.parametrize("args", [(-1, 6, 10), (10, -1, 10), (10, 6, 0), (2 ** 28, 8, 10)])
+def test_waterfill_progressive_plan_rejects(args):
+    with pytest.raises(ValueError):
+        wf.waterfill_progressive_plan(*args)
+
+
+@pytest.mark.parametrize("args", [(-1, 10, 5, H100_SMS), (1, -1, 5, H100_SMS),
+                                  (1, 10, 0, H100_SMS), (1, 10, 5, 0),
+                                  (wf.MAX_GRID_X + 1, 10, 5, H100_SMS)])
+def test_waterfill_fast_plan_rejects(args):
+    with pytest.raises(ValueError):
+        wf.waterfill_fast_plan(*args)
