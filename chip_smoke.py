@@ -2,15 +2,24 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k1   # K1 and the decision path alone (phases 1, 9
+                                 # and profile_k1): to compare two trees in one
+                                 # call, run it from a copy of each
 
 Phases, in order; every check asserts and any failure exits non-zero:
 
   1. device   name, count, ``nvidia-smi`` name and power limit
   2. build    nvcc every kernel source in parallel; ptxas registers/spills,
-              and the whole -Xptxas -v of flash_decode.cu and rwkv_scan.cu
+              and the whole -Xptxas -v of netkv_score.cu, flash_decode.cu and
+              rwkv_scan.cu
   3. kernels  each kernel against its plain PyTorch version at the shapes of
               the serving path, with times for the kernel, the plain version
               and the one PyTorch call that computes the same function;
+              netkv_score_cohort at R 1 x D 1-8192 and R 64 x D 2048, on rows
+              of equal costs across its cluster's ranks and rows with no or
+              one feasible lane (cost rows bitwise, packed results equal, two
+              calls bitwise equal), its plans, and from the profiler one
+              runtime launch a call and the kernel's time;
               flash_decode also where its split over the cache shows (one
               range, a range's edge and one past it, G 8, dh 16-256), with
               its ranges, grid and launches a call; rwkv_scan also at ragged
@@ -31,8 +40,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
               launched 32 times a prefill, no attention kernel launched
   8. trace    phase 6 on the rwkv6-3b cluster
   9. decide   200 netkv-full decisions through the netkv_score_cohort kernel
-              over a 2048-instance pool, each within rtol 1e-5 of the NumPy
-              minimum; launch count of netkv_score_cohort
+              and 200 on the NumPy backend over pools of 16-8192 instances,
+              each kernel pick within rtol 1e-5 of the NumPy minimum; µs a
+              decision of both and the crossover; at D 2048 the runtime calls
+              of one decision from the profiler: 1 copy in, 1 launch, 1 copy
+              out, 1 sync
  10. sweep    exp11's FULL grid (54 scenarios, 1400 steps of 0.01 s) through
               ScenarioPlane(backend="kernel"): first waterfill_fast against
               its plain version at the grid's shape and on three tables past
@@ -47,7 +59,8 @@ Phases, in order; every check asserts and any failure exits non-zero:
               netkv_score_cohort, over a Mooncake chatbot trace (one row a
               launch) and a same-arrival burst trace (cohorts of R > 1 rows):
               on the card every RunMetrics field equals the CPU run's but the
-              host-clock decision latencies; each FlowPlane fixed point of
+              host-clock decision latencies, and traced, every decision's
+              forensics row equals the CPU run's; each FlowPlane fixed point of
               the card runs is recomputed by waterfill_progressive and held
               to the plane's rates (rtol 1e-4); then waterfill_progressive
               bitwise against its plain version on those tables and on its
@@ -205,7 +218,7 @@ def phase_build() -> None:
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
-    for name in ("flash_decode", "rwkv_scan"):
+    for name in ("netkv_score", "flash_decode", "rwkv_scan"):
         say(f"[build] -Xptxas -v of {name}.cu:")
         for line in logs[name]["ptxas"].splitlines():
             say(f"[build]   {line.rstrip()}")
@@ -290,8 +303,9 @@ def check_flash_decode(rows: dict) -> None:
     # The split's edges at small shapes: one (batch, KV head) over many
     # ranges, G 8, dh 16, 64 and 256; pos 1, on the last range's edge and
     # one past it, and S.
+    # (4, 64, 8, 128, 2100): llama3-70b's decode shape, G 8.
     for b, h, kv, dh, s in ((1, 1, 1, 128, 4096), (2, 16, 2, 64, 1024), (3, 24, 3, 16, 600),
-                            (2, 12, 4, 256, 700)):
+                            (2, 12, 4, 256, 700), (4, 64, 8, 128, 2100)):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(b, h, kv, dh, s, dtype)
             poss = [1, *range_edges(q, k, s), s]
@@ -360,67 +374,144 @@ def pool_2048(n: int = 2048, seed: int = 0):
     return cv, view
 
 
-def check_netkv_score(rows: dict) -> None:
-    from repro_torch.core import H100_TP4_ITER, PAPER_TIER_BANDWIDTH, PAPER_TIER_LATENCY
+# K1's shapes: one decision over pools from 1 lane to past a cluster of 8
+# full blocks, lanes around warp and block edges, and a 64-row cohort; then
+# rows of equal costs whose feasible lanes sit across the cluster's ranks,
+# and rows with no or one feasible lane.
+K1_SHAPES = [(1, d) for d in (1, 2, 16, 31, 32, 33, 255, 256, 257, 2048, 2049, 8192)] + [
+    (64, 2048)]
+K1_KINDS = ("edge", "ranks", "none", "one")
+
+
+def k1_held(case: dict) -> np.ndarray:
+    """K1 on the card against its plain version on the card and on the host:
+    cost rows bitwise, packed results equal, two calls bitwise equal.
+    Returns the packed result."""
     from repro_torch.kernels import netkv_score as ns, ref
 
-    cv, view = pool_2048()
+    def on(dev):
+        return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+                for k, v in case.items()}
+
+    card = on("cuda")
+    cost, res = ns.netkv_score_cohort(**card)
+    cost2, res2 = ns.netkv_score_cohort(**card)
+    p_cost, p_res = ref.netkv_score_cohort_ref(**card)
+    h_cost, h_res = ref.netkv_score_cohort_ref(**on("cpu"))
+    shape = case["hit_rows"].shape
+    ensure(torch.equal(cost, cost2) and torch.equal(res, res2), f"K1 {shape}: two calls differ")
+    ensure(torch.equal(cost, p_cost) and torch.equal(cost.cpu(), h_cost),
+           f"K1 {shape}: cost rows differ from the plain version")
+    ensure(torch.equal(res, p_res) and torch.equal(res.cpu(), h_res),
+           f"K1 {shape}: packed result differs from the plain version")
+    return res.cpu().numpy()
+
+
+def check_netkv_score(rows: dict) -> None:
+    from repro_torch.core import H100_TP4_ITER, PAPER_TIER_BANDWIDTH, PAPER_TIER_LATENCY
+    from repro_torch.kernels import build, netkv_score as ns, ref
+
+    n_sm = build.sm_count(torch.device("cuda"))
+    plans = []
+    for r, d in K1_SHAPES:
+        k1_held(ns.score_case(r, d, n_sm=n_sm))
+        plan = ns.score_plan(r, d, n_sm)
+        plans.append(f"R {r} x D {d}: cluster {plan.cluster} x {plan.threads} threads, "
+                     f"grid {plan.grid}")
+    say("[kernels] netkv_score_cohort: cost rows bitwise equal to the plain version on the "
+        "card and the host, packed results equal, two calls bitwise equal; plans: "
+        + "; ".join(plans))
+    for kind in K1_KINDS:
+        for d in (257, 2048, 2049, 8192):
+            case = ns.score_case(2, d, kind, n_sm=n_sm)
+            best, best_cost, second, _ = ns.unpack_result(k1_held(case))
+            lanes = np.flatnonzero(case["healthy"])
+            want = (0 if kind == "none" else lanes[0], lanes[1] if len(lanes) > 1 else -1)
+            ensure((best == want[0]).all() and (second == want[1]).all(),
+                   (f"K1 {kind} D {d}", best, second, lanes))
+            ensure((best_cost == np.float32(ns.BIG)).all() == (kind == "none"),
+                   (f"K1 {kind} D {d}: best cost", best_cost))
+    say(f"[kernels] netkv_score_cohort: equal-cost lanes across cluster ranks ({', '.join(K1_KINDS)}"
+        f" at D 257, 2048, 2049, 8192): lowest index best, next second, none where no lane "
+        f"or one lane is feasible")
+
+    cv, _ = pool_2048()
     d = cv.n
     kv_bytes, input_len = 8192 * 320 * 1024, 8192
     timed = {}
     for r in (1, 64):
         rng = np.random.default_rng(7 * d + r)
-        cols = [cv.column(c).astype(np.float32) for c in
+        cols = [torch.from_numpy(cv.column(c).astype(np.float32)).cuda() for c in
                 ("free_memory", "queued", "batch", "healthy", "iter_scale")]
         args = dict(
             free_mem=cols[0], queued=cols[1], batch=cols[2],
-            hit_rows=rng.integers(0, input_len, (r, d)).astype(np.float32),
-            tier_rows=rng.integers(0, 4, (r, d)).astype(np.int32),
-            healthy=cols[3], iter_scale=cols[4])
-        infl = rng.integers(0, 4, (r, 4)).astype(np.float32)
-        sr = np.full(r, kv_bytes, np.float32)
-        lr = np.full(r, input_len, np.float32)
-        tables = ([PAPER_TIER_BANDWIDTH[t] for t in range(4)],
-                  [PAPER_TIER_LATENCY[t] for t in range(4)],
-                  [0.2, 0.1, 0.3, 0.05])
-        kw = dict(iter_a=H100_TP4_ITER.a, iter_b=H100_TP4_ITER.b, m_min=2e9, beta_max=64)
-        on_card = {k: torch.from_numpy(a).cuda() for k, a in args.items()}
-        infl_c, sr_c, lr_c = (torch.from_numpy(a).cuda() for a in (infl, sr, lr))
-
-        def kernel():
-            return ns.netkv_score_cohort(*on_card.values(), *tables, infl_c,
-                                         s_r=sr_c, input_len=lr_c, **kw)
-
-        def plain():
-            return ref.netkv_score_cohort_ref(*on_card.values(), *tables, infl_c,
-                                              s_r=sr_c, input_len=lr_c, **kw)
-
-        cost, best = kernel()
-        p_cost, p_best = plain()
-        h_cost, h_best = ref.netkv_score_cohort_ref(
-            *(torch.from_numpy(a) for a in args.values()), *tables,
-            torch.from_numpy(infl), s_r=torch.from_numpy(sr),
-            input_len=torch.from_numpy(lr), **kw)
-        ensure(torch.equal(cost, p_cost), f"R={r}: cost rows differ from the plain version")
-        ensure(torch.equal(cost.cpu(), h_cost), f"R={r}: cost rows differ from the host twin")
-        ensure(torch.equal(best, p_best) and torch.equal(best.cpu(), h_best), f"R={r}: argmin")
-        single = ns.netkv_score_cohort(
-            *(t for t in (on_card["free_mem"], on_card["queued"], on_card["batch"],
-                          on_card["hit_rows"][-1:], on_card["tier_rows"][-1:],
-                          on_card["healthy"], on_card["iter_scale"])),
-            *tables, infl_c[-1:], s_r=sr_c[-1:], input_len=lr_c[-1:], **kw)
-        ensure(torch.equal(single[0][0], cost[-1]), f"R={r}: last row != single-row call")
-        say(f"[kernels] netkv_score_cohort R={r} D={d}: cost rows bitwise, argmins equal")
-        moved = (5 * d * 4 + r * d * (4 + 4 + 4) + r * (4 * 4 + 4 + 4 + 4))
-        timed[r] = (device_time_ms(kernel, 200), device_time_ms(plain, 20),
+            hit_rows=torch.from_numpy(rng.integers(0, input_len, (r, d)).astype(np.float32)).cuda(),
+            tier_rows=torch.from_numpy(rng.integers(0, 4, (r, d)).astype(np.int32)).cuda(),
+            healthy=cols[3], iter_scale=cols[4],
+            tier_bw=[PAPER_TIER_BANDWIDTH[t] for t in range(4)],
+            tier_lat=[PAPER_TIER_LATENCY[t] for t in range(4)], congestion=[0.2, 0.1, 0.3, 0.05],
+            infl_rows=torch.from_numpy(rng.integers(0, 4, (r, 4)).astype(np.float32)).cuda(),
+            s_r=torch.full((r,), kv_bytes, dtype=torch.float32, device="cuda"),
+            input_len=torch.full((r,), input_len, dtype=torch.float32, device="cuda"),
+            iter_a=H100_TP4_ITER.a, iter_b=H100_TP4_ITER.b, m_min=2e9, beta_max=64)
+        # Each input read once, the cost rows and the (R, 4) result written once.
+        moved = 5 * d * 4 + r * d * (4 + 4) + r * (4 * 4 + 4 + 4) + r * d * 4 + r * 16
+        timed[r] = (device_time_ms(lambda: ns.netkv_score_cohort(**args), 200),
+                    device_time_ms(lambda: ref.netkv_score_cohort_ref(**args), 20),
                     *bound(moved, 26.0 * r * d, torch.float32))
+    prof = profile_k1()
+    launches = sum(v for k, v in prof["runtime_per_call"].items() if "Launch" in k)
+    ensure(launches == 1.0 and not any("Memcpy" in k or "Memset" in k
+                                       for k in prof["runtime_per_call"]),
+           ("K1 runtime calls a call", prof["runtime_per_call"]))
     # The decide path launches R = 1 (one request a decision); R = 64 is the
     # cohort shape of the simulator's batched selection, kept for comparison.
     k_ms, p_ms, b_ms, b_by = timed[1]
+    say(f"[kernels] netkv_score_cohort R 1 x D {d}: {k_ms:.5f} ms a call, the kernel "
+        f"{prof['kernel_ms']:.5f} ms, plain {p_ms:.4f} ms, bound {b_ms:.7f} ms ({b_by}); "
+        f"R 64: {timed[64][0]:.5f} ms, bound {timed[64][2]:.6f} ms")
     rows["netkv_score_cohort"] = row(
         "netkv_score_cohort", 0.0, k_ms, p_ms, None, b_ms, b_by,
-        shape=f"R 1 x D {d} f32", r64_ms=timed[64][0], r64_plain_ms=timed[64][1],
-        r64_bound_ms=timed[64][2])
+        shape=f"R 1 x D {d} f32", kernel_only_ms=prof["kernel_ms"],
+        plan=ns.score_plan(1, d, n_sm)._asdict(), launches_a_call=launches,
+        r64_ms=timed[64][0], r64_plain_ms=timed[64][1], r64_bound_ms=timed[64][2],
+        library="none: no one PyTorch call computes Eq. (2)-(7) and the two minima")
+
+
+def profile_k1(r: int = 1, d: int = 2048) -> dict:
+    """K1 at the decide path's shape: ``device_time_ms`` of the wrapper
+    beside the kernel's own time and the runtime calls a call, read from
+    the profiler."""
+    from repro_torch.core import H100_TP4_ITER, PAPER_TIER_BANDWIDTH, PAPER_TIER_LATENCY
+    from repro_torch.kernels import netkv_score as ns
+
+    cv, _ = pool_2048(d)
+    rng = np.random.default_rng(7 * d + r)
+    cols = [torch.from_numpy(cv.column(c).astype(np.float32)).cuda() for c in
+            ("free_memory", "queued", "batch", "healthy", "iter_scale")]
+    hit = torch.from_numpy(rng.integers(0, 8192, (r, d)).astype(np.float32)).cuda()
+    tier = torch.from_numpy(rng.integers(0, 4, (r, d)).astype(np.int32)).cuda()
+    infl = torch.from_numpy(rng.integers(0, 4, (r, 4)).astype(np.float32)).cuda()
+    sr = torch.full((r,), 8192 * 320 * 1024, dtype=torch.float32, device="cuda")
+    lr = torch.full((r,), 8192, dtype=torch.float32, device="cuda")
+    tables = ([PAPER_TIER_BANDWIDTH[t] for t in range(4)],
+              [PAPER_TIER_LATENCY[t] for t in range(4)], [0.2, 0.1, 0.3, 0.05])
+
+    def kernel():
+        return ns.netkv_score_cohort(cols[0], cols[1], cols[2], hit, tier, cols[3], cols[4],
+                                     *tables, infl, s_r=sr, input_len=lr,
+                                     iter_a=H100_TP4_ITER.a, iter_b=H100_TP4_ITER.b,
+                                     m_min=2e9, beta_max=64)
+
+    ms = device_time_ms(kernel, 200)
+    tr = traced(kernel, 20)
+    out = dict(r=r, d=d, device_time_ms=ms, kernel_ms=tr["ms_per_event"]["netkv"],
+               runtime_per_call=tr["runtime_per_call"], events_per_call=tr["events_per_call"])
+    say(f"[kernels] netkv_score_cohort R {r} x D {d}: device_time_ms {ms:.5f} ms a call "
+        f"over 200 calls; traced, the kernel {out['kernel_ms']:.5f} ms a launch; runtime "
+        f"calls a call {out['runtime_per_call']}, device events a call "
+        f"{out['events_per_call']}")
+    return out
 
 
 def rwkv_inputs(b: int, t: int, h: int, dh: int, dtype, gen):
@@ -648,6 +739,8 @@ def kernel_class(name: str) -> str:
         return "kv_pack"
     if "waterfill" in low:
         return "waterfill"
+    if "netkv" in low:
+        return "netkv"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     return "other"
@@ -658,9 +751,10 @@ def traced(fn, n: int) -> dict:
     warm-up calls under it: device time by kernel
     class, summed over device-side events only (kernels, copies, fills) so
     that the time a host op attributes to its kernel is not counted twice;
-    the device events and the runtime's launch, copy and fill calls a call;
-    the device time of each class a device event; and the device's busy
-    share of the traced window."""
+    the device events and the runtime's launch, copy and fill calls a call,
+    its stream synchronisations a call and the device's copies a call by
+    direction; the device time of each class a device event; and the
+    device's busy share of the traced window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -681,11 +775,17 @@ def traced(fn, n: int) -> dict:
     by_class: dict[str, float] = {}
     count: dict[str, int] = {}
     calls: dict[str, int] = {}
+    syncs: dict[str, int] = {}
+    copies: dict[str, int] = {}
     top = []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CPU and ev.key.startswith("cuda") and any(
                 k in ev.key for k in ("Launch", "Memset", "Memcpy")):
             calls[ev.key] = calls.get(ev.key, 0) + ev.count
+        if ev.device_type == DeviceType.CPU and ev.key == "cudaStreamSynchronize":
+            syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
+        if ev.device_type == DeviceType.CUDA and ev.key.startswith("Memcpy"):
+            copies[ev.key] = copies.get(ev.key, 0) + ev.count
         us = ev.self_device_time_total
         if (ev.device_type != DeviceType.CUDA or us <= 0 or ev.key == "Command Buffer Full"
                 or ev.key.startswith("ProfilerStep")):
@@ -701,6 +801,8 @@ def traced(fn, n: int) -> dict:
                 events_per_call={k: v / n for k, v in sorted(count.items())},
                 ms_per_event={k: by_class[k] / 1e3 / count[k] for k in sorted(count)},
                 runtime_per_call={k: v / n for k, v in sorted(calls.items())},
+                syncs_per_call={k: v / n for k, v in sorted(syncs.items())},
+                copies_per_call={k: v / n for k, v in sorted(copies.items())},
                 top=sorted(top, reverse=True)[:8])
 
 
@@ -735,31 +837,36 @@ def phase_trace(cluster, prompts) -> None:
 
 
 # ---------------------------------------------------------------- phase 9
-def phase_decide() -> int:
-    """200 kernel-scored decisions; returns the kernel's launch count."""
+DECIDE_POOLS = (16, 64, 256, 1024, 2048, 8192)
+
+
+def decide_at(n: int, decisions: int = 200) -> dict:
+    """``decisions`` netkv-full decisions over an ``n``-instance pool on the
+    kernel backend (the card) and on the NumPy backend: µs a decision of
+    each, and every kernel pick within rtol 1e-5 of the NumPy minimum."""
     from repro_torch.core import H100_TP4_ITER, RequestInfo, make_scheduler
     from repro_torch.kernels import build
 
-    cv, view = pool_2048()
-    n = cv.n
+    cv, view = pool_2048(n)
     req = RequestInfo(0, 8192, 8192 * 320 * 1024)
     rng = np.random.default_rng(11)
-    hits = rng.integers(0, req.input_len, (200, n)).astype(np.float64)
+    hits = rng.integers(0, req.input_len, (decisions, n)).astype(np.float64)
     kern = make_scheduler("netkv-full", H100_TP4_ITER, 64, backend="kernel",
                           device="cuda")
     plain = make_scheduler("netkv-full", H100_TP4_ITER, 64)
     cv.hit_tokens[:n] = hits[0]
     kern.select(req, 0, cv, view, None)  # warm the library and the allocator
+    plain.select(req, 0, cv, view, None)
     build.reset_launches()
-    picks, t_kernel = [], 0.0
-    for k in range(200):
+    picks, t_kernel = [], []
+    for k in range(decisions):
         cv.hit_tokens[:n] = hits[k]
         t0 = time.perf_counter()
         picks.append(kern.select(req, 0, cv, view, None))
-        t_kernel += time.perf_counter() - t0
+        t_kernel.append(time.perf_counter() - t0)
     launches = build.LAUNCHES["netkv_score_cohort"]
-    ensure(launches == 200, ("netkv_score_cohort launches", launches))
-    t_np = 0.0
+    ensure(launches == decisions, ("netkv_score_cohort launches", launches))
+    t_np = []
     for k, dec in enumerate(picks):
         cv.hit_tokens[:n] = hits[k]
         s_eff, mask = plain._prep(req, cv)
@@ -768,15 +875,64 @@ def phase_decide() -> int:
                 + plain._t_queue_vec(cv) + plain._t_decode_vec(cv))
         best = float(cost[mask].min())
         got = float(cost[cv.slot_of(dec.instance_id)])
-        ensure(abs(got - best) <= 1e-5 * abs(best), (k, got, best))
+        ensure(abs(got - best) <= 1e-5 * abs(best), (n, k, got, best))
         t0 = time.perf_counter()
         plain.select(req, 0, cv, view, None)
-        t_np += time.perf_counter() - t0
-    say(f"[decide] 200 netkv-full decisions over D={n}: kernel backend "
-        f"{t_kernel / 200 * 1e6:.1f} us/decision, NumPy backend "
-        f"{t_np / 200 * 1e6:.1f} us/decision; every pick within rtol 1e-5 of the "
-        f"NumPy minimum")
-    return launches
+        t_np.append(time.perf_counter() - t0)
+    # The host is shared and its pace varies: the median a decision beside
+    # the mean.
+    out = dict(d=n, kernel_us=np.mean(t_kernel) * 1e6, numpy_us=np.mean(t_np) * 1e6,
+               kernel_p50_us=np.median(t_kernel) * 1e6, numpy_p50_us=np.median(t_np) * 1e6,
+               launches=launches)
+    if n == 2048:
+        # What one decision asks of the runtime: copies, launches, syncs.
+        tr = traced(lambda: kern.select(req, 0, cv, view, None), 20)
+        out.update(runtime_per_decision=tr["runtime_per_call"],
+                   syncs_per_decision=tr["syncs_per_call"],
+                   copies_per_decision=tr["copies_per_call"],
+                   device_ms_per_decision=tr["device_ms"])
+    return out
+
+
+def phase_decide() -> tuple[int, dict]:
+    """Kernel-scored decisions against the NumPy backend at each pool size of
+    DECIDE_POOLS; returns K1's launches over the timed decisions and the
+    numbers of D 2048."""
+    rows = [decide_at(n) for n in DECIDE_POOLS]
+    for r in rows:
+        say(f"[decide] D={r['d']}: kernel backend {r['kernel_us']:.1f} us/decision "
+            f"(median {r['kernel_p50_us']:.1f}), NumPy backend {r['numpy_us']:.1f} "
+            f"(median {r['numpy_p50_us']:.1f}); every pick within rtol 1e-5 of the NumPy "
+            f"minimum")
+    wins = [r["d"] for r in rows if r["kernel_p50_us"] < r["numpy_p50_us"]]
+    say(f"[decide] crossover (medians): the card's decision beats NumPy's from D={wins[0]}"
+        if wins and all(r["kernel_p50_us"] < r["numpy_p50_us"]
+                        for r in rows if r["d"] >= wins[0])
+        else f"[decide] crossover (medians): the card wins at D in {wins} of "
+             f"{list(DECIDE_POOLS)}")
+    at = next(r for r in rows if r["d"] == 2048)
+    say(f"[decide] D=2048, one decision read from the profiler: runtime calls "
+        f"{at['runtime_per_decision']}, stream syncs {at['syncs_per_decision']}, device "
+        f"copies {at['copies_per_decision']}, device {at['device_ms_per_decision']:.4f} ms")
+    say("[decide] " + json.dumps(rows))
+    return sum(r["launches"] for r in rows), at
+
+
+def decision_calls(at: dict) -> None:
+    """A kernel-scored decision asks the runtime for one copy in, one launch
+    and one copy out (the packed result, from pinned memory), and one
+    synchronisation.  Runtime calls are read on the host, where the
+    profiler drops none; the device's copies, where it may drop a few, are
+    held to at most one each way, both pinned."""
+    rt, copies = at["runtime_per_decision"], at["copies_per_decision"]
+    launches = sum(v for k, v in rt.items() if "Launch" in k)
+    ensure(launches == 1.0 and rt.get("cudaMemcpyAsync") == 2.0 and len(rt) == 2,
+           ("runtime calls a decision", rt))
+    ensure(at["syncs_per_decision"] == {"cudaStreamSynchronize": 1.0},
+           ("syncs a decision", at["syncs_per_decision"]))
+    ensure(set(copies) <= {"Memcpy HtoD (Pinned -> Device)", "Memcpy DtoH (Device -> Pinned)"}
+           and all(v <= 1.0 for v in copies.values()), ("device copies a decision", copies))
+    say(f"[decide] one decision: 1 copy in, {launches:g} launch, 1 copy out, 1 sync")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -993,7 +1149,7 @@ def phase_simulate():
     from repro_torch.kernels import build
     from repro_torch.kernels import netkv_score as ns
     from repro_torch.kernels.waterfill import waterfill_rates
-    from repro_torch.sim import SimConfig, run_sim
+    from repro_torch.sim import SimConfig, Simulation, run_sim
     from repro_torch.traces import generate_trace
 
     traces = {
@@ -1024,11 +1180,11 @@ def phase_simulate():
         tables.append((paths, caps))
 
     rows_per_launch: list[int] = []
-    card_kernel = ns.netkv_score_cohort
+    card_launch = ns._launch
 
-    def counted(*a, **k):
-        rows_per_launch.append(int(a[3].shape[0]))
-        return card_kernel(*a, **k)
+    def counted(ptrs, params, r, *rest):
+        rows_per_launch.append(r)
+        card_launch(ptrs, params, r, *rest)
 
     launches = {}
     for name, (trace, kw) in traces.items():
@@ -1038,13 +1194,13 @@ def phase_simulate():
                             scheduler_kwargs=dict(backend="kernel", device=device), **kw)
             rows_per_launch.clear()
             if device == "cuda":
-                FlowPlane._recompute_rates, ns.netkv_score_cohort = shadowed, counted
+                FlowPlane._recompute_rates, ns._launch = shadowed, counted
                 build.reset_launches()
             t0 = time.perf_counter()
             try:
                 m = run_sim(cfg, trace)
             finally:
-                FlowPlane._recompute_rates, ns.netkv_score_cohort = recompute, card_kernel
+                FlowPlane._recompute_rates, ns._launch = recompute, card_launch
             wall = time.perf_counter() - t0
             out[device] = dataclasses.asdict(m)
             if device == "cuda":
@@ -1071,6 +1227,32 @@ def phase_simulate():
             f"{m['ttft_p99'] * 1e3:.1f} ms, SLO {m['slo_attainment']:.3f}, "
             f"decision latency {m['decision_latency_mean'] * 1e6:.1f} us (card) / "
             f"{out['cpu']['decision_latency_mean'] * 1e6:.1f} us (CPU)")
+    # The card's wall without the K5 shadow: K1 scoring alone.
+    for name, (trace, kw) in traces.items():
+        cfg = SimConfig(scheduler="netkv-full", dispatch_mode="plane",
+                        scheduler_kwargs=dict(backend="kernel", device="cuda"), **kw)
+        t0 = time.perf_counter()
+        run_sim(cfg, trace)
+        say(f"[simulate] {name} on the card without the K5 shadow: "
+            f"{time.perf_counter() - t0:.2f}s wall")
+    # Decision forensics: every decision's row (winner, runner-up, their
+    # costs, hits, loads and transfer times) on the card and on the CPU.
+    for name, (trace, kw) in traces.items():
+        rows = {}
+        for device in ("cuda", "cpu"):
+            cfg = SimConfig(scheduler="netkv-full", dispatch_mode="plane", trace=True,
+                            trace_decisions=1,
+                            scheduler_kwargs=dict(backend="kernel", device=device), **kw)
+            sim = Simulation(cfg)
+            sim.run(trace)
+            rows[device] = sim.trace.forensics_rows()
+        same = len(rows["cuda"]) == len(rows["cpu"]) and all(
+            all(x == y or (isinstance(x, float) and np.isnan(x) and np.isnan(y))
+                for x, y in zip(a, b)) for a, b in zip(rows["cuda"], rows["cpu"]))
+        ensure(same and rows["cpu"], f"{name}: forensics rows differ on the card and the CPU")
+        ran = sum(r[5] >= 0 for r in rows["cpu"])
+        say(f"[simulate] {name}, traced: {len(rows['cpu'])} forensics rows ({ran} with a "
+            f"runner-up) equal row for row on the card and the CPU")
     say(f"[simulate] {len(tables)} FlowPlane fixed points recomputed by "
         f"waterfill_progressive, max rel err vs the plane's f64 rates {worst[0]:.3g} (rtol 1e-4)")
     return launches, tables
@@ -1153,7 +1335,7 @@ def check_waterfill_progressive(rows: dict, tables) -> None:
         library="none: no single PyTorch call computes the fixed point")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1161,6 +1343,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     name, count, smi = phase_device()
+    if (sys.argv[1:] if argv is None else argv) == ["--k1"]:
+        # API-neutral: the wrapper's call and select() only, so that a copy
+        # of an earlier tree times its own K1 with this script.
+        print(json.dumps({"k1": profile_k1(), "decide": phase_decide()[1],
+                          "src": os.path.join(ROOT, "src")}))
+        return 0
     phase_build()
     rows: dict = {}
     check_kv_pack(rows)
@@ -1181,7 +1369,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["rwkv_scan"] = rwkv_launches["rwkv_scan"]
-    decide = phase_decide()
+    decide, at = phase_decide()
+    decision_calls(at)
     launches["waterfill_fast"] = phase_sweep(rows)
     sim_launches, tables = phase_simulate()
     check_waterfill_progressive(rows, tables)

@@ -1,8 +1,7 @@
 """Per-architecture configs of the port (``--arch <id>``).
 
-qwen3-14b (dense) and rwkv6-3b (RWKV-6) are ported; the other
-architectures of ``repro.configs`` need block kinds that are queued in
-ROADMAP §1 (other architectures).
+llama3-70b and qwen3-14b (dense) and rwkv6-3b (RWKV-6) are ported; the
+other architectures of ``repro.configs`` are queued in ROADMAP §1.
 """
 
 from __future__ import annotations
@@ -11,7 +10,8 @@ import importlib
 
 from .base import ArchSpec
 
-_MODULES = {"qwen3-14b": "qwen3_14b", "rwkv6-3b": "rwkv6_3b"}
+_MODULES = {"llama3-70b": "llama3_70b", "qwen3-14b": "qwen3_14b",
+            "rwkv6-3b": "rwkv6_3b"}
 ALL = list(_MODULES)
 
 

@@ -195,7 +195,7 @@ class CohortSelector:
         self._load = self._loadn = None
         self._tx = None
         self._has_tx = np.zeros(R, bool)
-        self._pl_costs = self._pl_best = self._pl_thr32 = None
+        self._pl_result = self._pl_thr32 = None
         self._free0 = self._healthy0 = None
 
         if kind in ("la", "ca", "cla"):
@@ -292,7 +292,7 @@ class CohortSelector:
         tier_rows = np.stack([cv.tier_row(it.prefill_id) for it in items])
         infl_rows = [[sched._n_by_tier(infl, it.prefill_id)[t] for t in TIERS]
                      for it in items]
-        costs, best = score_cohort_snapshot(
+        _, res = score_cohort_snapshot(
             cv.column("free_memory"), cv.column("queued"), cv.column("batch"),
             self.H[rows], tier_rows,
             cv.column("healthy") & (cv.column("role") == ROLE_DECODE),
@@ -306,8 +306,7 @@ class CohortSelector:
             m_min=sched.m_min, beta_max=sched.beta_max, device=sched.device,
         )
         self._pl_rows = {int(k): i for i, k in enumerate(rows)}
-        self._pl_costs = np.asarray(costs)
-        self._pl_best = np.asarray(best)
+        self._pl_result = res   # (R, 4): best, best_cost, second, second_cost
         self._free0 = cv.column("free_memory").copy()
         self._healthy0 = (cv.column("healthy")
                           & (cv.column("role") == ROLE_DECODE)).copy()
@@ -480,7 +479,7 @@ class CohortSelector:
 
     def _kernel_row(self, k, req, pid, se, tier_row, infl):
         sched, cv, oracle = self._sched, self._cv, self._oracle
-        i = self._pl_rows.get(k) if self._pl_best is not None else None
+        i = self._pl_rows.get(k) if self._pl_result is not None else None
         if i is None or self._dirty[k] or pid in self._infl_dirty \
                 or not self._kernel_feas_unchanged(i):
             # The single-row kernel reads the live hit_tokens column, which
@@ -491,8 +490,9 @@ class CohortSelector:
         else:
             from ..kernels.netkv_score import BIG
 
-            j = int(self._pl_best[i])
-            best_cost = float(self._pl_costs[i, j])
+            row = self._pl_result[i]
+            j = int(row[0])
+            best_cost = float(row.view(np.float32)[1])
             if not best_cost < BIG / 2:
                 return None
             tier = int(tier_row[j])
@@ -508,8 +508,7 @@ class CohortSelector:
                 # Same row the single-row kernel path records (the cohort
                 # kernel's f32 cost row is bit-identical across shapes).
                 sched._note_kernel(req, pid, cv, oracle, tier_row, se,
-                                   self.H[k], self._pl_costs[i], cong, nfl,
-                                   j, t_x)
+                                   self.H[k], row, cong, nfl, t_x)
             d = Decision(int(cv.ids[j]), best_cost, t_x, tier, se_j)
         if d is not None:
             if infl is not None:

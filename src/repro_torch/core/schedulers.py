@@ -524,7 +524,7 @@ class NetKVFull(Scheduler):
 
         cong = self._congestion_by_tier(oracle)
         nfl = self._n_by_tier(inflight, prefill_id)
-        costs, best = score_cohort_snapshot(
+        _, res = score_cohort_snapshot(
             cv.column("free_memory"), cv.column("queued"), cv.column("batch"),
             cv.column("hit_tokens"), tier_row,
             cv.column("healthy") & (cv.column("role") == ROLE_DECODE),
@@ -536,9 +536,8 @@ class NetKVFull(Scheduler):
             iter_a=self.iter_model.a, iter_b=self.iter_model.b,
             m_min=self.m_min, beta_max=self.beta_max, device=self.device,
         )
-        costs = costs[0]
-        j = int(best[0])
-        best_cost = float(costs[j])
+        j = int(res[0, 0])
+        best_cost = float(res[0].view(np.float32)[1])
         if not best_cost < BIG / 2:  # all candidates masked infeasible
             return None
         tier = int(tier_row[j])
@@ -551,26 +550,19 @@ class NetKVFull(Scheduler):
         h = self.trace_hook
         if h is not None and h.want_decision():
             self._note_kernel(req, prefill_id, cv, oracle, tier_row, s_eff,
-                              cv.column("hit_tokens"), costs, cong, nfl, j,
-                              t_x)
+                              cv.column("hit_tokens"), res[0], cong, nfl, t_x)
         return Decision(int(cv.ids[j]), best_cost, t_x, tier, se)
 
     def _note_kernel(self, req, prefill_id, cv, oracle, tier_row, s_eff,
-                     hit, costs, cong, nfl, j, t_x_w):
-        """Forensics row for a kernel-scored decision (numpy-free runner-up:
-        the kernel's lowest-index tie-break is a masked argmin over its f32
-        cost row).  Shared with the cohort selector's cached-row path so
+                     hit, res_row, cong, nfl, t_x_w):
+        """Forensics row for a kernel-scored decision, from the kernel's
+        packed result row: winner ``j`` and runner-up ``j2``, the first
+        argmin of its f32 cost row with ``j`` masked (-1 when that is
+        infeasible).  Shared with the cohort selector's cached-row path so
         both dispatch modes record identical rows."""
-        from ..kernels.netkv_score import BIG
-
-        c = np.asarray(costs)
-        j2 = -1
-        if c.size > 1:
-            masked = c.copy()
-            masked[j] = np.inf
-            jj = int(np.argmin(masked))
-            if float(masked[jj]) < BIG / 2:
-                j2 = jj
+        c = res_row.view(np.float32)
+        j, j2 = int(res_row[0]), int(res_row[2])
+        cost = {j: float(c[1]), j2: float(c[3])}
         xfer_r = float("nan")
         if j2 >= 0:
             tier_r = int(tier_row[j2])
@@ -579,16 +571,13 @@ class NetKVFull(Scheduler):
                 nfl[tier_r], oracle.tier_latency[tier_r])
         # The kernel does not materialise T_queue/T_decode separately;
         # record load as the cost with the (f64-recomputed) T_xfer removed.
-        xvec = np.full(c.shape, np.nan)
-        xvec[j] = t_x_w
-        lvec = np.full(c.shape, np.nan)
-        lvec[j] = float(c[j]) - t_x_w
-        if j2 >= 0:
-            xvec[j2] = xfer_r
-            lvec[j2] = float(c[j2]) - xfer_r
+        # Only entries j and j2 are read (``_note_decision`` takes any
+        # index-addressed vector).
+        xvec = {j: t_x_w, j2: xfer_r}
+        lvec = {j: cost[j] - t_x_w, j2: cost[j2] - xfer_r}
         self._note_decision(self.name, req, prefill_id, cv, oracle,
                             lambda jj_: int(tier_row[jj_]), j, j2,
-                            cost=c, cache=hit, load=lvec, xfer=xvec)
+                            cost=cost, cache=hit, load=lvec, xfer=xvec)
 
 
 class NetKVStatic(NetKVFull):

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-  netkv_score_cohort  Algorithm 1 scoring + masked argmin (csrc/netkv_score.cu)
+  netkv_score_cohort  Algorithm 1 scoring and the first two (cost, index)
+                      minima, a cluster of blocks a row (csrc/netkv_score.cu)
   kv_pack / kv_unpack paged-KV gather into a transfer buffer and its inverse
                       scatter (csrc/kv_pack.cu)
   flash_decode        GQA one-token attention with an online softmax

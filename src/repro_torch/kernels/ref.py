@@ -49,7 +49,11 @@ def netkv_score_cohort_ref(free_mem, queued, batch, hit_rows, tier_rows,
     with the same operation order, so that its cost rows equal the twin's
     bit for bit.  Tensors: pool columns (D,), hit/tier rows (R, D),
     infl_rows (R, 4), s_r/input_len (R,); tier tables are 4 numbers.
-    Returns (costs (R, D) f32, best (R,) int32)."""
+    Returns (costs (R, D) f32, result (R, 4) int32): per row the first
+    argmin ``best`` and its cost, and ``second``, the first argmin with
+    ``best`` masked to +inf, and its cost; ``second`` is -1 when D is 1 or
+    its cost is not below BIG / 2.  Costs are float bits in the int32 words
+    (``netkv_score.unpack_result``)."""
     f32 = torch.float32
     dev = hit_rows.device if isinstance(hit_rows, torch.Tensor) else torch.device("cpu")
 
@@ -93,7 +97,14 @@ def netkv_score_cohort_ref(free_mem, queued, batch, hit_rows, tier_rows,
     cost = t_xfer + t_queue + t_dec
     feasible = (hlt > 0.5) & (free >= s_eff + mm)
     cost = torch.where(feasible, cost, scalar(BIG))
-    return cost, torch.argmin(cost, dim=1).to(torch.int32)
+    best = torch.argmin(cost, dim=1, keepdim=True)
+    masked = cost.scatter(1, best, float("inf"))
+    second = torch.argmin(masked, dim=1, keepdim=True)
+    second_cost = masked.gather(1, second)
+    second = torch.where(second_cost.double() < BIG / 2, second, -1)
+    res = torch.cat([best.to(torch.int32), cost.gather(1, best).view(torch.int32),
+                     second.to(torch.int32), second_cost.view(torch.int32)], dim=1)
+    return cost, res
 
 
 # ------------------------------------------------------------ water-filling

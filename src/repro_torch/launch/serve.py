@@ -3,25 +3,31 @@ simulation, or the real-model executable cluster.
 
     python -m repro_torch.launch.serve --profile rag --scheduler netkv-full
     python -m repro_torch.launch.serve --profile rag --device cpu
+    python -m repro_torch.launch.serve --profile chatbot --rate 0.3 --backend numpy
     python -m repro_torch.launch.serve --real --arch qwen3-14b --requests 8
-    python -m repro_torch.launch.serve --real --width full --requests 8
+    python -m repro_torch.launch.serve --real --arch qwen3-14b --width full
 
 Without ``--real`` it runs ``run_sim`` on the 64-GPU default cluster with
-the ``--arch`` KV-size model and prints the JAX launcher's lines.  The
-netkv rungs score through the ``netkv_score_cohort`` kernel on
-``--device`` (default: the CUDA card); ``--device cpu`` scores through its
-plain PyTorch version.
+the ``--arch`` KV-size model (default llama3-70b, the paper's model, as in
+the JAX launcher) and prints the JAX launcher's lines.  With ``--backend
+kernel`` (the default) the netkv rungs score through the
+``netkv_score_cohort`` kernel in f32 on ``--device`` (default: the CUDA
+card; ``--device cpu`` scores through its plain PyTorch version); with
+``--backend numpy`` they score with the f64 NumPy ladder, as the JAX
+launcher does, and print its lines exactly, with no card needed.
 
 With ``--real``, ``--width smoke`` (the default) serves the smoke config in
 f32 with the JAX launcher's workload; ``--width full`` serves the full-width
 config in its bf16 compute dtype with 2048-token prompts, the even ones
-sharing a 1024-token prefix.
+sharing a 1024-token prefix, and refuses a config whose weights do not fit
+the device's memory (llama3-70b's ~141 GB on one 80 GB card).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -33,13 +39,37 @@ SMOKE = dict(n_prefill=2, n_decode=4, n_slots=4, cache_len=64, background=0.2,
              prompt_len=24, prefix_len=0, max_new=8, gap=0.02)
 
 
-def model_config(arch: str, width: str):
+# The memory a full-width config is held to when it is asked for on the CPU:
+# one H100's 80 GB.
+CPU_CARD_BYTES = 80 * 10**9
+
+
+def weight_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s parameters as ``Model`` stores them."""
+    from ..models.model import param_specs, storage_dtype
+
+    return sum(math.prod(s.shape) * storage_dtype(cfg, s).itemsize
+               for s in param_specs(cfg).values())
+
+
+def model_config(arch: str, width: str, device=None):
+    """The smoke config in f32, or the full-width config, which is refused
+    before anything is allocated when its weights alone exceed the memory
+    of ``device`` (a card's own, or ``CPU_CARD_BYTES`` on the CPU)."""
     from ..configs import get_spec
+    from ..kernels.build import resolve_device
 
     spec = get_spec(arch)
-    if width == "full":
-        return spec.model
-    return dataclasses.replace(spec.smoke, compute_dtype=torch.float32)
+    if width != "full":
+        return dataclasses.replace(spec.smoke, compute_dtype=torch.float32)
+    dev = resolve_device(device)
+    have = (torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda"
+            else CPU_CARD_BYTES)
+    need = weight_bytes(spec.model)
+    if need > have:
+        raise ValueError(f"{arch} at full width needs {need:,} bytes of weights, "
+                         f"more than the {have:,} bytes of {dev}")
+    return spec.model
 
 
 def make_requests(vocab: int, n: int, seed: int, *, prompt_len: int,
@@ -83,9 +113,10 @@ def simulate(args) -> int:
     trace = generate_trace(args.profile, duration=22.0,
                            target_rps=cap * args.rate, seed=args.seed)
     faults = [FaultEvent(time=8.0, kind="kill_decode", instance_id=5)] if args.faults else []
-    device = build.resolve_device(args.device)
+    device = build.resolve_device(args.device) if args.backend == "kernel" else None
     # Every netkv rung is a NetKVFull and takes the kernel scoring backend.
-    sched_kw = dict(backend="kernel", device=device) if args.scheduler.startswith("netkv") else {}
+    sched_kw = (dict(backend="kernel", device=device)
+                if device is not None and args.scheduler.startswith("netkv") else {})
     cfg = SimConfig(scheduler=args.scheduler, seed=args.seed, kv_spec=kv,
                     background=args.background, faults=faults,
                     scheduler_kwargs=sched_kw)
@@ -109,7 +140,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--real", action="store_true",
                     help="serve real models end to end instead of simulating")
-    ap.add_argument("--arch", default="qwen3-14b",
+    ap.add_argument("--arch", default="llama3-70b",
                     help="the model served with --real; the KV-size model of "
                          "the simulator")
     ap.add_argument("--width", choices=["smoke", "full"], default="smoke")
@@ -118,6 +149,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scheduler", default="netkv-full")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
+    ap.add_argument("--backend", choices=["kernel", "numpy"], default="kernel",
+                    help="the simulator's scorer of the netkv rungs: the "
+                         "netkv_score_cohort kernel (f32) or the f64 NumPy ladder")
     ap.add_argument("--profile", default="rag",
                     choices=["chatbot", "rag", "long_context"])
     ap.add_argument("--rate", type=float, default=1.0, help="fraction of capacity")
@@ -129,7 +163,7 @@ def main(argv=None) -> int:
         return simulate(args)
 
     workload = FULL if args.width == "full" else SMOKE
-    cfg = model_config(args.arch, args.width)
+    cfg = model_config(args.arch, args.width, args.device)
     cluster = build_cluster(cfg, workload, scheduler=args.scheduler,
                             seed=args.seed, device=args.device)
     reqs = make_requests(cfg.vocab_size, args.requests, args.seed, **workload)

@@ -129,37 +129,86 @@ def test_flash_decode_rejects(cuda):
         flash_decode(q, k.bfloat16(), k.bfloat16(), 1)
 
 
-@pytest.mark.parametrize("r,d", [(1, 1), (1, 300), (7, 2048), (64, 513)])
-def test_netkv_score_bitwise(cuda, r, d):
+# chip_smoke.py's phase-3 shapes of K1 and a few cohorts.
+K1_SHAPES = [(1, d) for d in (1, 2, 16, 31, 32, 33, 255, 256, 257, 2048, 2049, 8192)] + [
+    (64, 2048), (7, 2048), (64, 513), (1, 300)]
+
+
+def _k1_run(dev, fn, case):
+    return fn(**{k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+                 for k, v in case.items()})
+
+
+def _k1_held(cuda, case):
+    """Kernel against its plain version on the card and on the CPU: cost
+    rows bitwise, packed results equal; two calls bitwise equal, one launch
+    each.  Returns the packed result on the host."""
     from repro_torch.kernels.netkv_score import netkv_score_cohort
 
-    rng = np.random.default_rng(r * 1000 + d)
-    host = dict(
-        free_mem=rng.uniform(1e9, 4e11, d).astype(np.float32),
-        queued=rng.integers(0, 20, d).astype(np.float32),
-        batch=rng.integers(0, 64, d).astype(np.float32),
-        hit_rows=rng.uniform(0, 9000, (r, d)).astype(np.float32),
-        tier_rows=rng.integers(0, 4, (r, d)).astype(np.int32),
-        healthy=(rng.random(d) > 0.15).astype(np.float32),
-        iter_scale=rng.uniform(1, 2, d).astype(np.float32))
-    tables = ([4.5e11, 1.25e10, 6.25e9, 3.125e9], [1e-6, 3e-6, 8e-6, 1.5e-5],
-              list(rng.uniform(0, 0.8, 4)))
-    rows = dict(infl=rng.integers(0, 8, (r, 4)).astype(np.float32),
-                s_r=rng.uniform(1e9, 4e9, r).astype(np.float32),
-                l_r=rng.integers(1, 9000, r).astype(np.float32))
-    kw = dict(iter_a=0.0124, iter_b=1.6e-5, m_min=2e9, beta_max=64)
-
-    def run(dev, fn):
-        t = {k: torch.from_numpy(v).to(dev) for k, v in {**host, **rows}.items()}
-        return fn(t["free_mem"], t["queued"], t["batch"], t["hit_rows"], t["tier_rows"],
-                  t["healthy"], t["iter_scale"], *tables, t["infl"], s_r=t["s_r"],
-                  input_len=t["l_r"], **kw)
-
-    cost, best = run(cuda, netkv_score_cohort)
+    before = build.LAUNCHES["netkv_score_cohort"]
+    cost, res = _k1_run(cuda, netkv_score_cohort, case)
+    cost2, res2 = _k1_run(cuda, netkv_score_cohort, case)
+    assert build.LAUNCHES["netkv_score_cohort"] == before + 2
+    assert torch.equal(cost, cost2) and torch.equal(res, res2)
     for dev in (cuda, "cpu"):
-        p_cost, p_best = run(dev, ref.netkv_score_cohort_ref)
+        p_cost, p_res = _k1_run(dev, ref.netkv_score_cohort_ref, case)
         assert torch.equal(cost.cpu(), p_cost.cpu()), dev
-        assert torch.equal(best.cpu(), p_best.cpu()), dev
+        assert torch.equal(res.cpu(), p_res.cpu()), dev
+    return res.cpu().numpy()
+
+
+@pytest.mark.parametrize("r,d", K1_SHAPES)
+def test_netkv_score_bitwise(cuda, r, d):
+    from repro_torch.kernels.netkv_score import score_case
+
+    _k1_held(cuda, score_case(r, d, n_sm=build.sm_count(cuda)))
+
+
+@pytest.mark.parametrize("d", [2, 33, 257, 2048, 2049, 8192])
+@pytest.mark.parametrize("kind", ["edge", "ranks", "none", "one"])
+def test_netkv_score_ties_across_ranks_and_infeasible_rows(cuda, kind, d):
+    """Equal costs on lanes in different blocks of a row's cluster: the
+    lower index is best and the next one second; a row with no feasible
+    lane has best cost BIG and no second; one feasible lane, no second."""
+    from repro_torch.kernels.netkv_score import BIG, score_case, unpack_result
+
+    case = score_case(2, d, kind, n_sm=build.sm_count(cuda))
+    best, best_cost, second, _ = unpack_result(_k1_held(cuda, case))
+    lanes = np.flatnonzero(case["healthy"])
+    if kind == "none":
+        assert (best == 0).all() and (best_cost == np.float32(BIG)).all()
+    else:
+        assert (best == lanes[0]).all() and (best_cost < BIG / 2).all()
+    assert (second == (lanes[1] if len(lanes) > 1 else -1)).all()
+
+
+def test_score_cohort_snapshot_matches_cpu(cuda):
+    """The decision path's snapshot call, through its reused pinned buffers
+    as they grow: the packed result and the cost rows of the card equal the
+    CPU route's, one launch a call."""
+    from repro_torch.kernels.netkv_score import score_cohort_snapshot, score_case
+
+    for r, d in ((1, 16), (1, 2048), (4, 257), (1, 8192), (64, 2048), (1, 33)):
+        case = score_case(r, d, n_sm=build.sm_count(cuda))
+        kw = dict(case, healthy=case["healthy"] > 0.5)
+        before = build.LAUNCHES["netkv_score_cohort"]
+        c_card, res_card = score_cohort_snapshot(**kw, device=cuda)
+        assert build.LAUNCHES["netkv_score_cohort"] == before + 1
+        c_cpu, res_cpu = score_cohort_snapshot(**kw, device=torch.device("cpu"))
+        assert isinstance(res_card, np.ndarray) and res_card.shape == (r, 4)
+        np.testing.assert_array_equal(res_card, res_cpu)
+        assert c_card.device.type == "cuda" and torch.equal(c_card.cpu(), c_cpu)
+
+
+def test_netkv_score_refused_cluster_raises(cuda, monkeypatch):
+    """A launch the card refuses raises; nothing falls back."""
+    from repro_torch.kernels import netkv_score as ns
+
+    monkeypatch.setattr(ns, "score_plan", lambda r, d, n_sm: ns.ScorePlan(3, 64, 64, 3 * r))
+    before = build.LAUNCHES["netkv_score_cohort"]
+    with pytest.raises(RuntimeError, match="netkv_score_cohort"):
+        _k1_run(cuda, ns.netkv_score_cohort, ns.score_case(1, 100))
+    assert build.LAUNCHES["netkv_score_cohort"] == before
 
 
 def test_model_decode_on_card_matches_cpu(cuda):

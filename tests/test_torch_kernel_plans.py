@@ -6,7 +6,8 @@
 ``padded_width`` rounds K7's head width up to whole 16-byte rows;
 ``kernels/waterfill.py::waterfill_progressive_plan`` and
 ``waterfill_fast_plan`` place K5's and K6's arrays in shared or device
-memory.  None reaches the card, so all are held here: the ranges and column
+memory; ``kernels/netkv_score.py::score_plan`` sizes K1's cluster of blocks
+a row.  None reaches the card, so all are held here: the ranges and column
 groups cover their span exactly once, none is empty, a range fits a block's
 shared-memory tile, a block's shared bytes stay within the card's 227 KB,
 and the grid fits CUDA's launch limits.
@@ -16,6 +17,7 @@ import pytest
 from hypothesis_compat import given, settings, st
 
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import netkv_score as ns
 from repro_torch.kernels import rwkv_scan as rk
 from repro_torch.kernels import waterfill as wf
 from repro_torch.kernels.rwkv_scan import MAX_HEAD_DIM, padded_width
@@ -255,3 +257,52 @@ def test_waterfill_progressive_plan_rejects(args):
 def test_waterfill_fast_plan_rejects(args):
     with pytest.raises(ValueError):
         wf.waterfill_fast_plan(*args)
+
+
+def _check_score_plan(r, d, n_sm):
+    plan = ns.score_plan(r, d, n_sm)
+    ranges = ns.block_ranges(plan, d)
+    covered = [t for lo, hi in ranges for t in range(lo, hi)]
+    assert covered == list(range(d)), plan                  # [0, D) once, in rank order
+    assert plan.cluster in (1, 2, 4, 8), plan
+    assert plan.grid == r * plan.cluster
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= ns.MAX_THREADS
+    assert plan.span % 32 == 0 and plan.threads <= plan.span
+    assert ranges[0][1] > 0                                 # rank 0 holds lanes
+    # A cluster only where one block would hold more than MAX_THREADS lanes.
+    assert plan.cluster == 1 or d > (plan.cluster // 2) * ns.MAX_THREADS
+    return plan
+
+
+# The shapes of chip_smoke.py's phase 3, the decide phase's pools, R 64.
+@pytest.mark.parametrize("d", [1, 2, 16, 31, 32, 33, 64, 255, 256, 257, 1024, 2048, 2049,
+                               8192])
+@pytest.mark.parametrize("r", [1, 4, 64])
+def test_score_plan_covers_the_row(r, d):
+    _check_score_plan(r, d, H100_SMS)
+
+
+@settings(max_examples=300, deadline=None)
+@given(r=st.integers(1, 4096), d=st.integers(1, 100000), n_sm=st.integers(1, 200))
+def test_score_plan_property(r, d, n_sm):
+    _check_score_plan(r, d, n_sm)
+
+
+def test_score_plan_at_the_decide_shape():
+    """One decision over 2048 instances: 8 blocks of 256 threads, one lane a
+    thread (the first design walked 2048 lanes with one block); the
+    simulator's 16-instance pool: one block of one warp; a 64-row cohort:
+    clusters of 2, 128 blocks on 132 SMs."""
+    assert ns.score_plan(1, 2048, H100_SMS) == ns.ScorePlan(8, 256, 256, 8)
+    assert ns.score_plan(1, 16, H100_SMS) == ns.ScorePlan(1, 32, 32, 1)
+    assert ns.score_plan(1, 33, H100_SMS) == ns.ScorePlan(1, 64, 64, 1)
+    assert ns.score_plan(64, 2048, H100_SMS) == ns.ScorePlan(2, 256, 1024, 128)
+    # Ranks 0 and 1 of D 257 meet at lane 160: a tie there crosses the cluster.
+    assert ns.block_ranges(ns.score_plan(1, 257, H100_SMS), 257) == [(0, 160), (160, 257)]
+
+
+@pytest.mark.parametrize("args", [(0, 16, H100_SMS), (1, 0, H100_SMS), (1, 16, 0),
+                                  (-1, 16, H100_SMS), (ns.MAX_GRID_X + 1, 16, H100_SMS)])
+def test_score_plan_rejects(args):
+    with pytest.raises(ValueError):
+        ns.score_plan(*args)

@@ -18,6 +18,7 @@ import repro.kernels.ops as jops
 import repro.kernels.ref as jref
 from repro.kernels.netkv_score import _netkv_score_cohort_np
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.netkv_score import BIG, unpack_result
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -156,10 +157,10 @@ class TestNetKVScore:
             pool["tier_rows"], pool["healthy"], pool["iter_scale"], pool["tier_bw"],
             pool["tier_lat"], pool["congestion"], pool["infl_rows"], **kw)
         args, tkw = _torch_args(pool, kw)
-        c_t, b_t = ops.netkv_score_cohort(*args.values(), **tkw)
-        assert c_t.dtype == torch.float32 and b_t.dtype == torch.int32
+        c_t, res = ops.netkv_score_cohort(*args.values(), **tkw)
+        assert c_t.dtype == torch.float32 and res.dtype == torch.int32
         np.testing.assert_array_equal(c_t.numpy().view(np.uint32), c_np.view(np.uint32))
-        np.testing.assert_array_equal(b_t.numpy(), b_np)
+        np.testing.assert_array_equal(res[:, 0].numpy(), b_np)
 
     @given(seed=st.integers(0, 1000), d=st.integers(1, 300))
     @settings(max_examples=15, deadline=None)
@@ -172,26 +173,67 @@ class TestNetKVScore:
             pool["tier_lat"], pool["congestion"], pool["infl_rows"][0], **kw)
         args, _ = _torch_args(pool, {"s_r": np.array([2.6e9]), "input_len": np.array([8192.0])})
         tkw = dict(kw, s_r=torch.tensor([2.6e9]), input_len=torch.tensor([8192.0]))
-        c_t, b_t = ops.netkv_score_cohort(*args.values(), **tkw)
+        c_t, res = ops.netkv_score_cohort(*args.values(), **tkw)
         c_k = np.asarray(c_k)
         finite = c_k < 1e38
         if finite.any():
             np.testing.assert_allclose(c_t[0].numpy()[finite], c_k[finite], rtol=1e-5)
-        assert int(b_t[0]) == int(b_k)
+        assert int(res[0, 0]) == int(b_k)
 
     @pytest.mark.parametrize("r", [2, 5, 64])
     def test_cohort_row_equals_single_row_call(self, r):
         pool, kw = _score_case(r, r, 257)
         args, tkw = _torch_args(pool, kw)
-        costs, best = ops.netkv_score_cohort(*args.values(), **tkw)
+        costs, res = ops.netkv_score_cohort(*args.values(), **tkw)
         for i in range(r):
             row = dict(args, hit_rows=args["hit_rows"][i:i + 1],
                        tier_rows=args["tier_rows"][i:i + 1],
                        infl_rows=args["infl_rows"][i:i + 1])
-            c1, b1 = ops.netkv_score_cohort(
+            c1, r1 = ops.netkv_score_cohort(
                 *row.values(), **dict(tkw, s_r=tkw["s_r"][i:i + 1],
                                       input_len=tkw["input_len"][i:i + 1]))
-            assert torch.equal(c1[0], costs[i]) and int(b1[0]) == int(best[i])
+            assert torch.equal(c1[0], costs[i]) and torch.equal(r1[0], res[i])
+
+    @pytest.mark.parametrize("d", [1, 2, 33, 257])
+    @pytest.mark.parametrize("kind", ["ties", "infeasible", "one_feasible"])
+    def test_packed_result_vs_numpy_twin(self, kind, d):
+        """best, best_cost, second and second_cost against the JAX package's
+        f32 twin and the forensics runner-up as it was derived from the full
+        cost row: the first argmin with best masked to +inf, kept only when
+        its cost is below BIG / 2."""
+        pool, kw = _score_case(d, 3, d)
+        rng = np.random.default_rng(d)
+        if kind == "ties":
+            # Few distinct costs: equal columns, two hit levels, two tiers.
+            pool.update(queued=np.full(d, 2.0), batch=np.full(d, 8.0),
+                        iter_scale=np.ones(d), healthy=np.ones(d),
+                        free_mem=np.full(d, 4e11),
+                        hit_rows=rng.choice([0.0, 4096.0], (3, d)),
+                        tier_rows=rng.choice([1, 2], (3, d)),
+                        infl_rows=np.ones((3, 4)))
+        else:
+            healthy = np.zeros(d)
+            if kind == "one_feasible":
+                healthy[rng.integers(d)] = 1.0
+            pool.update(healthy=healthy, free_mem=np.full(d, 4e11))
+        c_np, b_np = _netkv_score_cohort_np(*pool.values(), **kw)
+        args, tkw = _torch_args(pool, kw)
+        c_t, res = ops.netkv_score_cohort(*args.values(), **tkw)
+        np.testing.assert_array_equal(c_t.numpy().view(np.uint32), c_np.view(np.uint32))
+        best, best_cost, second, second_cost = unpack_result(res.numpy())
+        for i, c in enumerate(c_np):
+            j = int(np.argmin(c))
+            assert (int(best[i]), best_cost[i]) == (j, c[j]) and j == int(b_np[i])
+            masked = c.copy()
+            masked[j] = np.inf
+            jj = int(np.argmin(masked))
+            want = jj if d > 1 and float(masked[jj]) < BIG / 2 else -1
+            assert int(second[i]) == want
+            assert second_cost[i].view(np.uint32) == masked[jj].view(np.uint32)
+        if kind == "infeasible":
+            assert (best_cost == np.float32(BIG)).all() and (second == -1).all()
+        if kind == "ties" and d > 2:
+            assert (best_cost == second_cost).any()   # a tie decided by index
 
     def test_matches_core_cost_model(self):
         """One candidate against the port's scalar cost model (its copy of

@@ -215,11 +215,11 @@ class TestKernelBackend:
         assert kern.select(RequestInfo(0, 8192, 1e9), 0, cv, view) is None
 
     def test_unported_paths_raise(self):
-        """Architectures other than qwen3-14b and rwkv6-3b are not ported:
-        asking for one raises and names ROADMAP."""
+        """Architectures other than llama3-70b, qwen3-14b and rwkv6-3b are
+        not ported: asking for one raises and names ROADMAP."""
         from repro_torch.configs import get_spec as port_spec
 
-        for arch in ("llama3-70b", "granite-moe-1b-a400m", "jamba-v0.1-52b"):
+        for arch in ("phi3-medium-14b", "granite-moe-1b-a400m", "jamba-v0.1-52b"):
             with pytest.raises(KeyError, match="ROADMAP"):
                 port_spec(arch)
 
@@ -278,7 +278,7 @@ class TestPortRules:
 
         assert serve.main(["--profile", "chatbot", "--rate", "0.3", "--device", "cpu"]) == 0
         out = capsys.readouterr().out
-        assert "netkv-full on chatbot (qwen3-14b KV) @ 30%:" in out and "TTFT mean=" in out
+        assert "netkv-full on chatbot (llama3-70b KV) @ 30%:" in out and "TTFT mean=" in out
         assert serve.main(["--real", "--requests", "2", "--device", "cpu"]) == 0
         assert "served 2 requests on cpu" in capsys.readouterr().out
         if not torch.cuda.is_available():

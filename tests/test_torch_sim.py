@@ -12,7 +12,9 @@ both packages and must agree:
   ``tests/test_dispatchplane.py`` reads them;
 * the kernel scoring backend: the port's ``netkv_score_cohort`` plain
   version (``backend="kernel", device="cpu"``) against the JAX Pallas
-  backend in interpret mode on a burst drive that forms cohorts.
+  backend in interpret mode on a burst drive that forms cohorts, decisions
+  and decision forensics rows (the JAX backend derives its runner-up from
+  the whole cost row, the port from the kernel's packed result).
 """
 
 import dataclasses
@@ -164,3 +166,26 @@ def test_kernel_backend_matches_pallas_backend():
     assert st == sj
     assert ot == oj
     assert lt == lj
+
+
+def _forensics(pkg, **kw):
+    cfg = pkg.SimConfig(scheduler="netkv-full", dispatch_mode="plane", warmup=0.5,
+                        measure=4.0, seed=3, trace=True, trace_decisions=1, **GPU64, **kw)
+    sim = pkg.Simulation(cfg)
+    sim.run(_burst(pkg, 3), drain=10.0)
+    return sim.trace.forensics_rows()
+
+
+def test_kernel_backend_forensics_rows_match_pallas_backend():
+    """Every decision's forensics row, traced with ``trace_decisions=1``:
+    the port reads winner and runner-up from the kernel's packed result,
+    the JAX Pallas backend masks the winner in the whole f32 cost row and
+    takes its first argmin, as the port did before the packed result.
+    Row for row equal, NaN fields included."""
+    rj = _forensics(jsim, scheduler_kwargs={"backend": "pallas"})
+    rt = _forensics(tsim, scheduler_kwargs={"backend": "kernel", "device": "cpu"})
+    assert rt and len(rt) == len(rj)
+    for a, b in zip(rt, rj):
+        assert len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b)), (a, b)
+    assert any(r[5] >= 0 for r in rt)                  # a runner-up was recorded
+    assert all(r[5] < 0 or r[9] <= r[10] for r in rt)  # the winner costs no more
