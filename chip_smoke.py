@@ -22,12 +22,15 @@ Phases, in order; every check asserts and any failure exits non-zero:
               runtime launch a call and the kernel's time;
               flash_decode also where its split over the cache shows (one
               range, a range's edge and one past it, G 8, dh 16-256), with
-              its ranges, grid and launches a call; rwkv_scan also at ragged
+              its ranges, grid and launches a call, and at the decode shapes
+              of granite-moe (G 2, dh 64; timed too), phi3 (G 4), internlm2
+              (G 6) and smollm (G 3, dh 64); rwkv_scan also at ragged
               T, B 2, dh 16-128 across its column groups and in bf16; both
               deterministic (two calls bitwise equal)
   4. match    the serving path on the card against the same path on the CPU
-              (the plain versions), the qwen3-14b and rwkv6 smoke configs in
-              f32: every result equal
+              (the plain versions), the smoke configs of qwen3-14b, rwkv6,
+              granite-moe, arctic (MoE with a dense residual), phi3,
+              internlm2 and smollm in f32: every result equal
   5. serve    qwen3-14b at full width (bf16, random weights from a seed):
               2 prefill + 4 decode instances, 8 requests of 2048 tokens, 16
               new tokens each; launch counts of kv_pack/kv_unpack/flash_decode
@@ -39,6 +42,12 @@ Phases, in order; every check asserts and any failure exits non-zero:
               cluster is freed: 21,299,200 state bytes a request, rwkv_scan
               launched 32 times a prefill, no attention kernel launched
   8. trace    phase 6 on the rwkv6-3b cluster
+ 8b. serve    granite-moe-1b-a400m at full width (MoE FFN: 32 experts, top 8)
+              on the same workload, then phase 6 on its cluster (the MoE
+              dispatch's kernels as a class of their own) and two prefills
+              and two decode steps on the same inputs, bitwise equal; then
+              phi3-medium-14b, internlm2-20b and smollm-135m at full width
+              with 4 requests each, each cluster freed before the next
   9. decide   200 netkv-full decisions through the netkv_score_cohort kernel
               and 200 on the NumPy backend over pools of 16-8192 instances,
               each kernel pick within rtol 1e-5 of the NumPy minimum; µs a
@@ -282,9 +291,37 @@ def range_edges(q, k, s: int) -> list[int]:
     return sorted({p + d for p in (full[0], full[-1]) for d in (0, 1) if p + d <= s})
 
 
-def check_flash_decode(rows: dict) -> None:
+def time_flash_decode(q, k, v, pos: int) -> dict:
+    """K4 at one decode shape: the kernel, its plain version and SDPA on the
+    same inputs, and its bound (the first ``pos`` key and value rows read
+    once, q read and the output written once)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_decode as fd, ref
+
+    b, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    moved = 2 * b * pos * kv * dh * es + 2 * q.numel() * es
+    b_ms, b_by = bound(moved, 4.0 * b * h * pos * dh, q.dtype)
+    qs = q[:, :, None, :]
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device="cuda") < pos)[None, None, None, :]
+    return dict(ms=device_time_ms(lambda: fd.flash_decode(q, k, v, pos), 100),
+                plain_ms=device_time_ms(lambda: ref.flash_decode_ref(q, k, v, pos), 20),
+                library_ms=device_time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, kt, vt, attn_mask=mask, enable_gqa=True), 100),
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} pos {pos}")
+
+
+# The decode shapes (B 4 slots, S cache_len 4096) of the other attention
+# models served at full width: (H, KV, dh).
+K4_DECODE_SHAPES = {"granite-moe-1b-a400m": (16, 8, 64), "phi3-medium-14b": (40, 10, 128),
+                    "internlm2-20b": (48, 8, 128), "smollm-135m": (9, 3, 64)}
+
+
+def check_flash_decode(rows: dict) -> None:
     from repro_torch.kernels import build, flash_decode as fd, ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -312,6 +349,20 @@ def check_flash_decode(rows: dict) -> None:
             err = max(held(q, k, v, pos, f"{(b, h, kv, dh, s)} {dtype}") for pos in poss)
             say(f"[kernels] flash_decode B {b} H {h} KV {kv} dh {dh} S {s} {dtype}: pos {poss}, "
                 f"up to {fd.plan_for(q, k, s).n_split} ranges, max abs err {err:.3g}")
+    granite = None
+    for arch, (h, kv, dh) in K4_DECODE_SHAPES.items():
+        b, s = 4, 4096
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(b, h, kv, dh, s, dtype)
+            poss = [1, *range_edges(q, k, s), 2056, s]
+            err = max(held(q, k, v, pos, f"{arch} {dtype}") for pos in poss)
+            say(f"[kernels] flash_decode at {arch}'s decode shape (B {b} H {h} KV {kv} G "
+                f"{h // kv} dh {dh} S {s}) {dtype}: pos {poss}, max abs err {err:.3g}")
+            if arch == "granite-moe-1b-a400m" and dtype == torch.bfloat16:
+                granite = time_flash_decode(q, k, v, 2056)
+                say(f"[kernels] flash_decode at granite's decode shape: {granite['ms']:.4f} ms a "
+                    f"call, SDPA {granite['library_ms']:.4f} ms, plain {granite['plain_ms']:.4f} "
+                    f"ms, bound {granite['bound_ms']:.4f} ms ({granite['bound_by']})")
     b, h, kv, dh, s = 4, 40, 8, 128, 4096
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(b, h, kv, dh, s, dtype)
@@ -336,24 +387,14 @@ def check_flash_decode(rows: dict) -> None:
             + ", ".join(f"{re.search(r'flash_decode_[a-z]+', key).group()} {us / n:.2f} us"
                         for us, n, key in mine)
             + ")")
-        es = q.element_size()
-        moved = 2 * b * pos * kv * dh * es + 2 * q.numel() * es
-        b_ms, b_by = bound(moved, 4.0 * b * h * pos * dh, dtype)
-        qs = q[:, :, None, :]
-        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        mask = (torch.arange(s, device="cuda") < pos)[None, None, None, :]
-        k_ms = device_time_ms(lambda: fd.flash_decode(q, k, v, pos), 100)
-        p_ms = device_time_ms(lambda: ref.flash_decode_ref(q, k, v, pos), 20)
-        l_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kt, vt, attn_mask=mask, enable_gqa=True), 100)
-        say(f"[kernels] flash_decode: {k_ms:.4f} ms a call, SDPA {l_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        t = time_flash_decode(q, k, v, pos)
+        say(f"[kernels] flash_decode: {t['ms']:.4f} ms a call, SDPA {t['library_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
         rows["flash_decode"] = row(
-            "flash_decode", worst, k_ms, p_ms, l_ms, b_ms, b_by,
-            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 pos {pos}",
-            n_split=plan.n_split, range_len=plan.range_len, grid=list(grid),
-            kernel_launches_per_call=per_call)
-        del kt, vt
+            "flash_decode", worst, t["ms"], t["plain_ms"], t["library_ms"], t["bound_ms"],
+            t["bound_by"], shape=t["shape"], n_split=plan.n_split, range_len=plan.range_len,
+            grid=list(grid), kernel_launches_per_call=per_call,
+            **{f"granite_{key}": value for key, value in granite.items()})
     torch.cuda.empty_cache()
 
 
@@ -625,7 +666,7 @@ def phase_match(arch: str) -> None:
 
 
 # ---------------------------------------------------------- phases 5, 7
-def phase_serve(arch: str):
+def phase_serve(arch: str, n_requests: int = 8):
     """Serve the full-width workload; returns the launch counts of the run,
     the served cluster and its prompts."""
     from repro_torch.configs import get_spec
@@ -642,7 +683,7 @@ def phase_serve(arch: str):
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     torch.cuda.reset_peak_memory_stats()
-    reqs = make_requests(cfg.vocab_size, 8, 0, **workload)
+    reqs = make_requests(cfg.vocab_size, n_requests, 0, **workload)
 
     # Every prefill and decode logit must be finite: wrap the model calls the
     # engines make and keep one device flag per call.
@@ -729,7 +770,9 @@ def dense_launches(cfg, workload, results, reqs, steps) -> dict:
 
 
 # ---------------------------------------------------------- phases 6, 8
-def kernel_class(name: str) -> str:
+def kernel_class(name: str, moe: bool = False) -> str:
+    """A kernel's class by its name; ``moe`` splits out the MoE dispatch's
+    kernels of a MoE model's trace (elsewhere they are "other")."""
     low = name.lower()
     if "rwkv" in low:
         return "rwkv"
@@ -743,10 +786,23 @@ def kernel_class(name: str) -> str:
         return "netkv"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
+    if not moe:
+        return "other"
+    # The MoE dispatch: top-k's sort, the slot count's scan, the slot
+    # position's gather, the scatter into the expert rows and the gathers
+    # of tokens and expert outputs (index kernels; in a decode step the
+    # embedding's gather is the one index kernel of another op).  The
+    # router's product is a matmul.
+    if any(k in low for k in ("sort", "scan", "scatter_gather", "index")):
+        return "moe_dispatch"
+    # In a decode step only the MoE router's softmax; in a prefill also
+    # the attention's.
+    if "softmax" in low:
+        return "softmax"
     return "other"
 
 
-def traced(fn, n: int) -> dict:
+def traced(fn, n: int, moe: bool = False) -> dict:
     """Run ``fn`` ``n`` times under ``torch.profiler``, after ``n`` untraced
     warm-up calls under it: device time by kernel
     class, summed over device-side events only (kernels, copies, fills) so
@@ -790,7 +846,7 @@ def traced(fn, n: int) -> dict:
         if (ev.device_type != DeviceType.CUDA or us <= 0 or ev.key == "Command Buffer Full"
                 or ev.key.startswith("ProfilerStep")):
             continue
-        cls = kernel_class(ev.key)
+        cls = kernel_class(ev.key, moe)
         by_class[cls] = by_class.get(cls, 0.0) + us
         count[cls] = count.get(cls, 0) + ev.count
         top.append((us, ev.count, ev.key))
@@ -822,10 +878,14 @@ def phase_trace(cluster, prompts) -> None:
     for _ in range(10):
         de.step()
     step_ms = (time.perf_counter() - t0) * 1e3 / 10
-    decode = traced(de.step, 4)
-    prefill = traced(lambda: pe.run(0, prompts[0]), 1)
+    moe = cluster.cfg.moe is not None
+    decode = traced(de.step, 4, moe)
+    prefill = traced(lambda: pe.run(0, prompts[0]), 1, moe)
     say(f"[trace] {name} decode step (batch {de.n_slots}, pos ~{len(prompts[0])}): "
         f"{step_ms:.2f} ms wall untraced")
+    launches = sum(v for k, v in decode["runtime_per_call"].items() if "Launch" in k)
+    say(f"[trace] {name} decode step: {launches:g} runtime launches a step, "
+        f"{launches / cluster.cfg.n_layers:.1f} a layer")
     for label, tr in (("decode step", decode), ("prefill", prefill)):
         say(f"[trace] {name} traced {label}: wall {tr['wall_ms']:.2f} ms, device busy "
             f"{tr['device_ms']:.2f} ms ({tr['busy_share']:.1%}); by class "
@@ -834,6 +894,30 @@ def phase_trace(cluster, prompts) -> None:
             say(f"[trace]     {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     say("[trace] " + json.dumps(dict(model=name, decode_step_ms=step_ms, decode_trace=decode,
                                      prefill_trace=prefill)))
+
+
+def check_bitwise_steps(cluster, prompts) -> None:
+    """Two prefills of one prompt, and two decode steps of the first decode
+    engine's slots from copies of one cache: logits and caches bitwise
+    equal (the MoE dispatch and combine use no atomics)."""
+    from repro_torch.models import decode_step
+
+    pe, de = cluster.prefill[0], cluster.decode[0]
+    first, second = pe.run(0, prompts[0]), pe.run(0, prompts[0])
+    ensure(torch.equal(first.last_logits, second.last_logits)
+           and all(torch.equal(first.cache[k], second.cache[k])
+                   for k in first.cache if k != "pos"), "two prefills differ")
+    tokens = torch.as_tensor(de._tokens, device=cluster.device)[:, None]
+    steps = []
+    for _ in range(2):
+        cache = {k: v if k == "pos" else v.clone() for k, v in de.cache.items()}
+        steps.append(decode_step(cluster.model, tokens, cache))
+    (l1, c1), (l2, c2) = steps
+    ensure(torch.equal(l1, l2) and all(torch.equal(c1[k], c2[k]) for k in c1 if k != "pos"),
+           "two decode steps differ")
+    say(f"[serve] {cluster.cfg.name}: two prefills of a {len(prompts[0])}-token prompt and "
+        f"two decode steps of {de.n_slots} slots at pos {de.cache['pos']}: logits and caches "
+        f"bitwise equal")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1335,6 +1419,20 @@ def check_waterfill_progressive(rows: dict, tables) -> None:
         library="none: no single PyTorch call computes the fixed point")
 
 
+# The dense models served at full width after granite-moe, with their
+# request counts: 4, half the workload's 8, to hold the script's time
+# (the first 4 decisions, the third request's prefix hit among them, are
+# those of an 8-request serve).
+DENSE_SERVES = {"phi3-medium-14b": 4, "internlm2-20b": 4, "smollm-135m": 4}
+
+
+def free() -> None:
+    """Return the memory of a dropped cluster to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[free] {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1342,6 +1440,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    last = [t_start]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        say(f"[time] {what}: {now - last[0]:.1f}s")
+        last[0] = now
+
     name, count, smi = phase_device()
     if (sys.argv[1:] if argv is None else argv) == ["--k1"]:
         # API-neutral: the wrapper's call and select() only, so that a copy
@@ -1350,30 +1455,46 @@ def main(argv=None) -> int:
                           "src": os.path.join(ROOT, "src")}))
         return 0
     phase_build()
+    lap("build")
     rows: dict = {}
     check_kv_pack(rows)
     check_flash_decode(rows)
     check_netkv_score(rows)
     check_rwkv_scan(rows)
-    phase_match("qwen3-14b")
-    phase_match("rwkv6-3b")
+    lap("kernels")
+    for arch in ("qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m", "arctic-480b",
+                 *DENSE_SERVES):
+        phase_match(arch)
+    lap("match")
     launches, cluster, prompts = phase_serve("qwen3-14b")
     phase_trace(cluster, prompts)
     del cluster
-    gc.collect()
-    torch.cuda.empty_cache()
-    say(f"[free] {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    free()
     rwkv_launches, cluster, prompts = phase_serve("rwkv6-3b")
     phase_trace(cluster, prompts)
     del cluster
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     launches["rwkv_scan"] = rwkv_launches["rwkv_scan"]
+    lap("serve qwen3, rwkv6")
+    # The attention models' launches of K2-K4 add up over their serves.
+    for arch in ("granite-moe-1b-a400m", *DENSE_SERVES):
+        more, cluster, prompts = phase_serve(arch, DENSE_SERVES.get(arch, 8))
+        if arch == "granite-moe-1b-a400m":
+            phase_trace(cluster, prompts)
+            check_bitwise_steps(cluster, prompts)
+        del cluster
+        free()
+        for k in ("kv_pack", "kv_unpack", "flash_decode"):
+            launches[k] += more[k]
+        lap(f"serve {arch}")
     decide, at = phase_decide()
     decision_calls(at)
+    lap("decide")
     launches["waterfill_fast"] = phase_sweep(rows)
+    lap("sweep")
     sim_launches, tables = phase_simulate()
     check_waterfill_progressive(rows, tables)
+    lap("simulate")
     # K1 runs on two paths: the decide phase and the simulator's scoring.
     launches["netkv_score_cohort"] = decide + sum(
         v["netkv_score_cohort"] for v in sim_launches.values())

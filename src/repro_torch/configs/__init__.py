@@ -1,7 +1,9 @@
 """Per-architecture configs of the port (``--arch <id>``).
 
-llama3-70b and qwen3-14b (dense) and rwkv6-3b (RWKV-6) are ported; the
-other architectures of ``repro.configs`` are queued in ROADMAP §1.
+The dense models (llama3-70b, qwen3-14b, phi3-medium-14b, internlm2-20b,
+smollm-135m), the MoE models (granite-moe-1b-a400m, arctic-480b) and
+rwkv6-3b (RWKV-6) are ported; the other architectures of ``repro.configs``
+are queued in ROADMAP §1.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ import importlib
 from .base import ArchSpec
 
 _MODULES = {"llama3-70b": "llama3_70b", "qwen3-14b": "qwen3_14b",
-            "rwkv6-3b": "rwkv6_3b"}
+            "phi3-medium-14b": "phi3_medium_14b", "internlm2-20b": "internlm2_20b",
+            "smollm-135m": "smollm_135m", "granite-moe-1b-a400m": "granite_moe_1b",
+            "arctic-480b": "arctic_480b", "rwkv6-3b": "rwkv6_3b"}
 ALL = list(_MODULES)
 
 

@@ -1,5 +1,5 @@
-"""The port's models (dense and RWKV-6): config, parameters, prefill,
-decode."""
+"""The port's models (dense, MoE and RWKV-6): config, parameters,
+prefill, decode."""
 
 from .convert import params_from_jax
 from .model import (
@@ -12,6 +12,13 @@ from .model import (
     prefill,
     state_bytes,
 )
+from .moe import (
+    MoEConfig,
+    moe_ffn,
+    moe_param_specs,
+    moe_residual_param_specs,
+    moe_with_residual,
+)
 from .rwkv import (
     rwkv_channel_mix,
     rwkv_channel_mix_step,
@@ -20,7 +27,8 @@ from .rwkv import (
     rwkv_time_mix_step,
 )
 
-__all__ = ["Model", "ModelConfig", "decode_step", "init_random_",
-           "make_decode_cache", "param_specs", "params_from_jax", "prefill",
+__all__ = ["Model", "ModelConfig", "MoEConfig", "decode_step", "init_random_",
+           "make_decode_cache", "moe_ffn", "moe_param_specs", "moe_residual_param_specs",
+           "moe_with_residual", "param_specs", "params_from_jax", "prefill",
            "rwkv_channel_mix", "rwkv_channel_mix_step", "rwkv_param_specs",
            "rwkv_time_mix", "rwkv_time_mix_step", "state_bytes"]

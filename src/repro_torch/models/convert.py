@@ -3,7 +3,8 @@
 The caller turns the JAX arrays into NumPy arrays (``np.asarray`` on every
 leaf); the port only ever sees NumPy.  The tree keeps the JAX layout:
 ``{"embed", "out_norm", "lm_head", "layers": {"b0": {...}, "f0": {...}}}``
-(no ``f0`` for RWKV) with per-layer leaves stacked over periods.
+(no ``f0`` for RWKV; the MoE periods nest their experts under ``f0.moe``)
+with per-layer leaves stacked over periods.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """The decoder models of the port: config, parameters, prefill and decode.
 
-A port of two periods of ``repro/models/model.py``: the dense transformer
-(``attn``/``dense``, qwen3-14b) and RWKV-6 (``rwkv``/``none``, rwkv6-3b).
+A port of four periods of ``repro/models/model.py``: the dense transformer
+(``attn``/``dense``, qwen3-14b), attention with a MoE FFN (``attn``/``moe``,
+granite-moe-1b-a400m; ``attn``/``moe_res``, arctic-480b, with a parallel
+dense FFN) and RWKV-6 (``rwkv``/``none``, rwkv6-3b).
 The JAX package's layouts hold at every public function: weights are
 (d_in, d_out) and applied as ``x @ W``; per-layer tensors stay stacked over
 the period axis P (``layers.b0.wq`` is (P, d, H*dh)), and a Python loop over
@@ -21,10 +23,13 @@ the same way (checked against ``_backbone_seq``'s cast): ``decay_base``,
 ``ln_x``, ``ln1``, ``ln2`` (P, d), ``bonus_u`` (P, H, 64), ``mu_base``
 (P, 5, d) and ``cm_mu`` (P, 2, d) reach the JAX blocks in
 ``compute_dtype``, and the blocks upcast ``bonus_u`` and the decay
-exponent to f32 themselves.  ``out_norm`` is 1-D and stays f32, as in JAX.
+exponent to f32 themselves.  The MoE leaves (``layers.f0.moe.*``, the
+router included) are stacked over P too, so they are stored in
+``compute_dtype``, and the router is up-cast to f32 where it is used, as in
+JAX.  ``out_norm`` is 1-D and stays f32, as in JAX.
 
-Other block kinds (MoE, Mamba, cross-attention) are not ported yet
-(ROADMAP §1, other architectures) and raise ``NotImplementedError``.
+Other block kinds (Mamba, cross-attention) are not ported yet (ROADMAP §1,
+other architectures) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..kernels import ops
 from ..kernels.build import resolve_device
 from .attention import chunked_causal_attention
 from .common import InitSpec, rms_norm, rope_tables, rotate, swiglu
+from .moe import MoEConfig, moe_ffn, moe_param_specs, moe_residual_param_specs, moe_with_residual
 from .rwkv import (
     HEAD_DIM as RWKV_HEAD_DIM,
     rwkv_channel_mix,
@@ -48,9 +54,10 @@ from .rwkv import (
 )
 
 # The ported periods: (block_pattern, ffn_pattern).
-PORTED = {(("attn",), ("dense",)): "dense", (("rwkv",), ("none",)): "rwkv"}
-NOT_PORTED = ("only the dense attn/dense and the rwkv/none periods are ported; "
-              "other block kinds are queued in ROADMAP §1 (other architectures)")
+PORTED = {(("attn",), ("dense",)): "dense", (("attn",), ("moe",)): "moe",
+          (("attn",), ("moe_res",)): "moe_res", (("rwkv",), ("none",)): "rwkv"}
+NOT_PORTED = ("only the attn/dense, attn/moe, attn/moe_res and rwkv/none periods are "
+              "ported; other block kinds are queued in ROADMAP §1 (other architectures)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +73,7 @@ class ModelConfig:
     block_pattern: tuple[str, ...] = ("attn",)
     ffn_pattern: tuple[str, ...] = ("dense",)
     qk_norm: bool = False
+    moe: MoEConfig | None = None
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     attn_chunk: int = 1024
@@ -89,7 +97,8 @@ class ModelConfig:
 
 
 def period_kind(cfg: ModelConfig) -> str:
-    """``"dense"`` or ``"rwkv"``; raises on every period not ported."""
+    """``"dense"``, ``"moe"``, ``"moe_res"`` or ``"rwkv"``; raises on every
+    period not ported."""
     kind = PORTED.get((tuple(cfg.block_pattern), tuple(cfg.ffn_pattern)))
     if kind is None:
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")
@@ -121,12 +130,17 @@ def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
     if cfg.qk_norm:
         specs["layers.b0.q_norm"] = InitSpec((p, dh), kind="ones")
         specs["layers.b0.k_norm"] = InitSpec((p, dh), kind="ones")
-    specs.update({
-        "layers.f0.ln": InitSpec((p, d), kind="ones"),
-        "layers.f0.gate": InitSpec((p, d, cfg.d_ff)),
-        "layers.f0.up": InitSpec((p, d, cfg.d_ff)),
-        "layers.f0.down": InitSpec((p, cfg.d_ff, d)),
-    })
+    if kind == "dense":
+        ffn = {"gate": InitSpec((d, cfg.d_ff)), "up": InitSpec((d, cfg.d_ff)),
+               "down": InitSpec((cfg.d_ff, d))}
+    elif kind == "moe":
+        ffn = {f"moe.{k}": s for k, s in moe_param_specs(d, cfg.moe).items()}
+    else:
+        ffn = {f"moe.{k}": s for k, s in
+               moe_residual_param_specs(d, cfg.d_ff, cfg.moe).items()}
+    specs["layers.f0.ln"] = InitSpec((p, d), kind="ones")
+    specs.update({f"layers.f0.{name}": InitSpec((p, *s.shape), s.scale, s.kind)
+                  for name, s in ffn.items()})
     return specs
 
 
@@ -138,7 +152,8 @@ def storage_dtype(cfg: ModelConfig, spec: InitSpec) -> torch.dtype:
 class Model(nn.Module):
     """Parameters of one model, named as in the JAX parameter tree
     (``embed``, ``out_norm``, ``lm_head``, ``layers.b0.*`` and, for the
-    dense period, ``layers.f0.*``).
+    dense and MoE periods, ``layers.f0.*``, the MoE's under
+    ``layers.f0.moe.*``); a subtree is a nested ``ParameterDict``.
     Allocated uninitialised; fill with :func:`init_random_` or
     ``convert.params_from_jax``."""
 
@@ -147,16 +162,20 @@ class Model(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         self.specs = param_specs(cfg)
-        blocks = sorted({n.split(".")[1] for n in self.specs if n.startswith("layers.")})
-        self.layers = nn.ModuleDict({blk: nn.ParameterDict() for blk in blocks})
+        self.layers = nn.ModuleDict()
         for name, spec in self.specs.items():
             t = nn.Parameter(torch.empty(spec.shape, dtype=storage_dtype(cfg, spec),
                                          device=dev), requires_grad=False)
             parts = name.split(".")
             if len(parts) == 1:
                 setattr(self, name, t)
-            else:
-                self.layers[parts[1]][parts[2]] = t
+                continue
+            node = self.layers
+            for part in parts[1:-1]:
+                if part not in node:
+                    node[part] = nn.ParameterDict()
+                node = node[part]
+            node[parts[-1]] = t
 
     @property
     def device(self) -> torch.device:
@@ -187,7 +206,7 @@ def init_random_(model: Model, seed: int) -> Model:
 
 
 def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
-    """Zeroed decode cache and ``pos`` (a host int).  Dense: ``k0``/``v0``
+    """Zeroed decode cache and ``pos`` (a host int).  Dense and MoE: ``k0``/``v0``
     (P, B, cache_len, KV, dh).  RWKV: ``wkv0`` (P, B, H, 64, 64) f32 and
     ``sa0``/``sc0`` (P, B, d), whatever ``cache_len``."""
     dev = resolve_device(device)
@@ -215,7 +234,13 @@ def state_bytes(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def _layer(model: Model, i: int, block: str) -> dict:
-    return {k: v[i] for k, v in model.layers[block].items()}
+    return _slice(model.layers[block], i)
+
+
+def _slice(node: nn.ParameterDict, i: int) -> dict:
+    """Period ``i`` of every leaf under ``node``, nested as the subtrees."""
+    return {k: _slice(v, i) if isinstance(v, nn.ParameterDict) else v[i]
+            for k, v in node.items()}
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
@@ -232,7 +257,12 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
 
 
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(rms_norm(x, p["ln"], cfg.norm_eps), p["gate"], p["up"], p["down"])
+    """The period's FFN on the normed x; serving drops the MoE aux loss."""
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    kind = period_kind(cfg)
+    if kind == "dense":
+        return swiglu(xn, p["gate"], p["up"], p["down"])
+    return (moe_ffn if kind == "moe" else moe_with_residual)(xn, p["moe"], cfg.moe)[0]
 
 
 def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
@@ -243,7 +273,7 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
 def prefill(model: Model, tokens: torch.Tensor, cache_len: int | None = None):
     """Run the prompt (B, S); return (last-token logits (B, 1, V), cache).
 
-    Dense: the K/V leaves are allocated at ``cache_len`` (>= S) and zero
+    Dense and MoE: the K/V leaves are allocated at ``cache_len`` (>= S) and zero
     past the prompt, the JAX version's padding, so decode can append in
     place.  RWKV: each layer's final WKV state and last shift inputs."""
     cfg = model.cfg
@@ -295,7 +325,7 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict):
     by one.
 
     The cache is updated in place (JAX returns an updated copy; writing in
-    place saves a cache copy per layer).  Dense: the new K/V rows land at
+    place saves a cache copy per layer).  Dense and MoE: the new K/V rows land at
     the scalar ``pos`` and attention runs through ``ops.flash_decode`` over
     the first pos+1 entries.  RWKV: each layer's WKV and shift states are
     overwritten by the step's (plain PyTorch, as in JAX)."""

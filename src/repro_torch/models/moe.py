@@ -1,0 +1,143 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch (``repro/models/moe.py``).
+
+Top-k routing with a per-expert token capacity ``cap = max(int(T * k / E *
+cf), 1)``; a (token, k) slot past its expert's capacity is dropped (its
+combine weight is zero).  Slot positions come from a cumulative count over
+the token-major ``(T*k)`` order, so a lower token index, then a lower k,
+wins a slot.  Variants: plain top-k (granite) and MoE plus a parallel dense
+FFN (arctic, ``moe_with_residual``).
+
+Every op is deterministic on the card: no atomics.  Dispatch writes each
+kept slot to its own row of the expert buffer and each dropped slot to a
+spill row of its own, so no two writes share a row; the combine sums a
+token's k terms one after another in the output dtype, the order (and, in
+bf16, the rounding after each add) of the reference's scatter-add on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from .common import InitSpec, swiglu
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int            # expert hidden size
+    capacity_factor: float = 1.25
+    dense_residual: bool = False  # arctic-style parallel dense FFN
+    dispatch_chunks: int = 1      # token-chunked dispatch (memory vs launch)
+
+
+def moe_param_specs(d_model: int, cfg: MoEConfig) -> dict[str, InitSpec]:
+    e, f = cfg.n_experts, cfg.d_expert
+    return {
+        "router": InitSpec((d_model, e)),
+        "w_gate": InitSpec((e, d_model, f)),
+        "w_up": InitSpec((e, d_model, f)),
+        "w_down": InitSpec((e, f, d_model)),
+    }
+
+
+def moe_residual_param_specs(d_model: int, d_ff: int, cfg: MoEConfig) -> dict[str, InitSpec]:
+    specs = moe_param_specs(d_model, cfg)
+    specs.update(
+        res_gate=InitSpec((d_model, d_ff)),
+        res_up=InitSpec((d_model, d_ff)),
+        res_down=InitSpec((d_ff, d_model)),
+    )
+    return specs
+
+
+def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss).
+
+    aux_loss is the load-balancing loss (mean_e f_e * p_e * E), f32.  With
+    ``dispatch_chunks`` nc > 1 and S divisible by nc, the tokens are
+    dispatched in nc chunks along S, each with its own capacity, and
+    aux_loss is the chunks' mean."""
+    b, s, d = x.shape
+    nc = cfg.dispatch_chunks
+    if nc > 1 and s % nc == 0:
+        parts = [_moe_ffn_once(xi, params, cfg) for xi in x.split(s // nc, dim=1)]
+        return (torch.cat([o for o, _ in parts], dim=1),
+                torch.stack([a for _, a in parts]).mean())
+    return _moe_ffn_once(x, params, cfg)
+
+
+def route(xf: torch.Tensor, router: torch.Tensor, top_k: int):
+    """(probs (T, E), gates (T, k), experts (T, k)) in f32 from the router
+    up-cast to f32.  Experts are in descending probability, the lower index
+    first on a tie (``lax.top_k``'s order), which a stable sort gives."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[:, :top_k], experts[:, :top_k]
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), experts
+
+
+def slot_positions(experts: torch.Tensor, n_experts: int):
+    """(pos, counts): each (token, k) slot's position in its expert's
+    buffer, the count of earlier slots of the token-major flat order with
+    its expert, and each expert's count of slots."""
+    flat = experts.reshape(-1)
+    # (E, T*k): the count runs along the last dimension, where the card's
+    # scan is parallel (along the first it is one thread a column).
+    onehot = (torch.arange(n_experts, device=flat.device)[:, None] == flat).int()
+    before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    return before.gather(0, flat[None, :])[0], onehot.sum(dim=1)
+
+
+def _moe_ffn_once(x: torch.Tensor, params: dict,
+                  cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(int(t * k / e * cfg.capacity_factor), 1)
+    xf = x.reshape(t, d)
+    probs, gates, experts = route(xf, params["router"], k)
+
+    flat_e = experts.reshape(-1)
+    pos, counts = slot_positions(experts, e)
+    keep = pos < cap
+
+    # Load-balancing aux loss.
+    frac_tokens = counts.float() / (t * k)
+    aux = (frac_tokens * probs.mean(dim=0)).sum() * e
+
+    gate_kept = torch.where(keep, gates.reshape(-1), 0.0)
+    # Kept slot j goes to row flat_e*cap + pos of the (E*cap) expert rows,
+    # a dropped one to spill row E*cap + j: every row is written once.
+    n = t * k
+    flat_idx = torch.arange(n, device=x.device)
+    kept_row = flat_e * cap + pos
+    buf = x.new_zeros((e * cap + n, d))
+    buf[torch.where(keep, kept_row, e * cap + flat_idx)] = xf[flat_idx // k]
+    h = buf[:e * cap].view(e, cap, d)
+
+    # Expert computation over the stacked expert weights.
+    h = F.silu(torch.bmm(h, params["w_gate"])) * torch.bmm(h, params["w_up"])
+    y = torch.bmm(h, params["w_down"]).reshape(e * cap, d)
+
+    # Gather back (a dropped slot reads the zero row) and combine with the
+    # gates, a token's k terms summed in order in x's dtype.
+    y = torch.cat([y, y.new_zeros((1, d))])
+    picked = y[torch.where(keep, kept_row, e * cap)]
+    terms = (picked * gate_kept[:, None].to(x.dtype)).view(t, k, d)
+    out = x.new_zeros((t, d))
+    for j in range(k):
+        out = out + terms[:, j]
+    return out.reshape(b, s, d), aux
+
+
+def moe_with_residual(x: torch.Tensor, params: dict,
+                      cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Arctic: dense FFN residual branch in parallel with the MoE."""
+    moe_out, aux = moe_ffn(x, params, cfg)
+    dense = swiglu(x, params["res_gate"], params["res_up"], params["res_down"])
+    return moe_out + dense, aux

@@ -84,6 +84,10 @@ def test_flash_decode_matches_plain(cuda, dtype, b, h, kv, dh, s):
     (2, 16, 2, 64, 1024),   # G 8
     (3, 24, 3, 16, 600),    # G 8, dh 16
     (2, 12, 4, 256, 700),   # G 3, dh 256
+    (4, 16, 8, 64, 4096),   # granite-moe-1b-a400m: G 2, dh 64
+    (4, 40, 10, 128, 4096),  # phi3-medium-14b: G 4
+    (4, 48, 8, 128, 4096),  # internlm2-20b: G 6
+    (4, 9, 3, 64, 4096),    # smollm-135m: G 3, dh 64
 ])
 def test_flash_decode_split_boundaries(cuda, dtype, b, h, kv, dh, s):
     """K4 where the split shows: one range (pos under one range), pos on a
@@ -534,3 +538,84 @@ def test_rwkv_model_on_card_matches_cpu(cuda):
         torch.testing.assert_close(cg[leaf].cpu(), cc[leaf], atol=1e-4, rtol=1e-4)
     assert build.LAUNCHES["rwkv_scan"] == before["rwkv_scan"] + cfg.n_layers
     assert build.LAUNCHES["flash_decode"] == before["flash_decode"]
+
+
+def test_moe_model_on_card_matches_cpu(cuda):
+    """The granite-moe smoke model in f32: prefill (MoE dispatch at S 20)
+    and decode steps (4 slots x top-4 over 8 experts of capacity 2) on the
+    card against the plain path on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, decode_step, init_random_, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products on both sides
+    cfg = dataclasses.replace(get_spec("granite-moe-1b-a400m").smoke,
+                              compute_dtype=torch.float32)
+    cpu = init_random_(Model(cfg, device="cpu"), 0)
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 20)))
+    lc, cc = prefill(cpu, toks, cache_len=64)
+    lg, cg = prefill(gpu, toks.to(cuda), cache_len=64)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    before = build.LAUNCHES["flash_decode"]
+    for _ in range(4):
+        tok = torch.argmax(lc[:, -1], dim=-1)[:, None]
+        lc, cc = decode_step(cpu, tok, cc)
+        lg, cg = decode_step(gpu, tok.to(cuda), cg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert build.LAUNCHES["flash_decode"] == before + 4 * cfg.n_layers
+
+
+def _moe_inputs(cuda, cfg, d, b, s, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    e, f = cfg.n_experts, cfg.d_expert
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    params = {k: (0.02 * torch.randn(v, generator=gen, device=cuda)).to(dtype)
+              for k, v in shapes.items()}
+    return params, torch.randn((b, s, d), generator=gen, device=cuda).to(dtype)
+
+
+def test_moe_ffn_on_card_routes_as_cpu(cuda):
+    """The granite smoke MoE in f32: experts and kept slots on the card
+    equal the CPU route's, and the output agrees."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import moe_ffn
+    from repro_torch.models.moe import route, slot_positions
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = get_spec("granite-moe-1b-a400m").smoke
+    cfg = dataclasses.replace(smoke.moe, dispatch_chunks=4)
+    params, x = _moe_inputs(cuda, cfg, smoke.d_model, 4, 16, torch.float32, 0)
+    on_cpu = {k: v.cpu() for k, v in params.items()}
+    for xi in (x[:, :4], x[:, 4:8], x[:, :1]):
+        xf = xi.reshape(-1, smoke.d_model)
+        t = xf.shape[0]
+        cap = max(int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
+        got, want = route(xf, params["router"], cfg.top_k), route(xf.cpu(), on_cpu["router"],
+                                                                  cfg.top_k)
+        assert torch.equal(got[2].cpu(), want[2])
+        assert torch.equal(slot_positions(got[2], cfg.n_experts)[0].cpu() < cap,
+                           slot_positions(want[2], cfg.n_experts)[0] < cap)
+    out, aux = moe_ffn(x, params, cfg)
+    out_c, aux_c = moe_ffn(x.cpu(), on_cpu, cfg)
+    torch.testing.assert_close(out.cpu(), out_c, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), aux_c, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("b,s", [(4, 1), (1, 2048)], ids=["decode", "prefill"])
+def test_moe_ffn_is_deterministic(cuda, b, s):
+    """granite-moe-1b-a400m's MoE at full width in bf16, a decode step of 4
+    slots and a 2048-token prefill in 4 dispatch chunks: two calls bitwise
+    equal (no op of the dispatch or the combine uses atomics)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import moe_ffn
+
+    full = get_spec("granite-moe-1b-a400m").model
+    params, x = _moe_inputs(cuda, full.moe, full.d_model, b, s, torch.bfloat16, 1)
+    first, second = moe_ffn(x, params, full.moe), moe_ffn(x, params, full.moe)
+    assert first[0].dtype == torch.bfloat16 and bool(torch.isfinite(first[0]).all())
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])

@@ -145,9 +145,9 @@ class TestModel:
 
     def test_unported_block_kinds_raise(self, cfgs):
         _, tcfg = cfgs
-        moe = dataclasses.replace(tcfg, ffn_pattern=("moe",))
+        mamba = dataclasses.replace(tcfg, block_pattern=("mamba",))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(moe, device="cpu")
+            Model(mamba, device="cpu")
         with pytest.raises(KeyError, match="ROADMAP"):
             get_spec("jamba-v0.1-52b")
 
