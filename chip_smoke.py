@@ -24,13 +24,15 @@ Phases, in order; every check asserts and any failure exits non-zero:
               range, a range's edge and one past it, G 8, dh 16-256), with
               its ranges, grid and launches a call, and at the decode shapes
               of granite-moe (G 2, dh 64; timed too), phi3 (G 4), internlm2
-              (G 6) and smollm (G 3, dh 64); rwkv_scan also at ragged
+              (G 6), smollm (G 3, dh 64) and jamba (G 4, dh 128; timed
+              too); rwkv_scan also at ragged
               T, B 2, dh 16-128 across its column groups and in bf16; both
               deterministic (two calls bitwise equal)
   4. match    the serving path on the card against the same path on the CPU
               (the plain versions), the smoke configs of qwen3-14b, rwkv6,
               granite-moe, arctic (MoE with a dense residual), phi3,
-              internlm2 and smollm in f32: every result equal
+              internlm2, smollm and jamba (Mamba, attention and MoE in one
+              8-layer period) in f32: every result equal
   5. serve    qwen3-14b at full width (bf16, random weights from a seed):
               2 prefill + 4 decode instances, 8 requests of 2048 tokens, 16
               new tokens each; launch counts of kv_pack/kv_unpack/flash_decode
@@ -48,6 +50,15 @@ Phases, in order; every check asserts and any failure exits non-zero:
               and two decode steps on the same inputs, bitwise equal; then
               phi3-medium-14b, internlm2-20b and smollm-135m at full width
               with 4 requests each, each cluster freed before the next
+ 8c. serve    jamba-v0.1-52b at full width with 16 of its 32 layers (two
+              whole periods; 32 layers' bf16 weights do not fit one card) on
+              the same workload: each request ships its un-hit attention
+              pages (8,192 B a token) and the whole Mamba state (8,028,160
+              B); flash_decode launched 2 x decode steps; then phase 6 on
+              its cluster, two prefills and two decode steps bitwise equal,
+              and the Mamba mixer alone at full width (a 2048-token prefill
+              and a 4-slot decode step: device and wall ms, runtime
+              launches a call, bound)
   9. decide   200 netkv-full decisions through the netkv_score_cohort kernel
               and 200 on the NumPy backend over pools of 16-8192 instances,
               each kernel pick within rtol 1e-5 of the NumPy minimum; µs a
@@ -86,6 +97,7 @@ device, or without the repository's ``src/`` beside it, it fails.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -316,9 +328,11 @@ def time_flash_decode(q, k, v, pos: int) -> dict:
 
 
 # The decode shapes (B 4 slots, S cache_len 4096) of the other attention
-# models served at full width: (H, KV, dh).
+# models served at full width: (H, KV, dh).  Those of TIMED are timed too.
 K4_DECODE_SHAPES = {"granite-moe-1b-a400m": (16, 8, 64), "phi3-medium-14b": (40, 10, 128),
-                    "internlm2-20b": (48, 8, 128), "smollm-135m": (9, 3, 64)}
+                    "internlm2-20b": (48, 8, 128), "smollm-135m": (9, 3, 64),
+                    "jamba-v0.1-52b": (32, 8, 128)}
+TIMED = {"granite-moe-1b-a400m": "granite", "jamba-v0.1-52b": "jamba"}
 
 
 def check_flash_decode(rows: dict) -> None:
@@ -349,7 +363,7 @@ def check_flash_decode(rows: dict) -> None:
             err = max(held(q, k, v, pos, f"{(b, h, kv, dh, s)} {dtype}") for pos in poss)
             say(f"[kernels] flash_decode B {b} H {h} KV {kv} dh {dh} S {s} {dtype}: pos {poss}, "
                 f"up to {fd.plan_for(q, k, s).n_split} ranges, max abs err {err:.3g}")
-    granite = None
+    timed = {}
     for arch, (h, kv, dh) in K4_DECODE_SHAPES.items():
         b, s = 4, 4096
         for dtype in (torch.bfloat16, torch.float32):
@@ -358,11 +372,11 @@ def check_flash_decode(rows: dict) -> None:
             err = max(held(q, k, v, pos, f"{arch} {dtype}") for pos in poss)
             say(f"[kernels] flash_decode at {arch}'s decode shape (B {b} H {h} KV {kv} G "
                 f"{h // kv} dh {dh} S {s}) {dtype}: pos {poss}, max abs err {err:.3g}")
-            if arch == "granite-moe-1b-a400m" and dtype == torch.bfloat16:
-                granite = time_flash_decode(q, k, v, 2056)
-                say(f"[kernels] flash_decode at granite's decode shape: {granite['ms']:.4f} ms a "
-                    f"call, SDPA {granite['library_ms']:.4f} ms, plain {granite['plain_ms']:.4f} "
-                    f"ms, bound {granite['bound_ms']:.4f} ms ({granite['bound_by']})")
+            if arch in TIMED and dtype == torch.bfloat16:
+                t = timed[TIMED[arch]] = time_flash_decode(q, k, v, 2056)
+                say(f"[kernels] flash_decode at {TIMED[arch]}'s decode shape: {t['ms']:.4f} ms a "
+                    f"call, SDPA {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     b, h, kv, dh, s = 4, 40, 8, 128, 4096
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(b, h, kv, dh, s, dtype)
@@ -394,7 +408,7 @@ def check_flash_decode(rows: dict) -> None:
             "flash_decode", worst, t["ms"], t["plain_ms"], t["library_ms"], t["bound_ms"],
             t["bound_by"], shape=t["shape"], n_split=plan.n_split, range_len=plan.range_len,
             grid=list(grid), kernel_launches_per_call=per_call,
-            **{f"granite_{key}": value for key, value in granite.items()})
+            **{f"{model}_{key}": value for model, t in timed.items() for key, value in t.items()})
     torch.cuda.empty_cache()
 
 
@@ -631,8 +645,6 @@ def phase_match(arch: str) -> None:
     through the kernels and on the CPU through their plain versions, which
     the CPU tests hold equal to the JAX package.  Every result field (tokens,
     decisions, bytes, simulated times) must be equal."""
-    import dataclasses
-
     from repro_torch.configs import get_spec
     from repro_torch.kernels import build
     from repro_torch.launch.serve import SMOKE, build_cluster, make_requests
@@ -652,30 +664,31 @@ def phase_match(arch: str) -> None:
                        cluster.serve(make_requests(cfg.vocab_size, 8, 0, **workload))]
     ensure(out["cuda"] == out["cpu"], ("card and CPU results differ", out))
     sent = [r["transfer_bytes"] for r in out["cpu"]]
+    # The fixed state (f32 here: RWKV's, or a hybrid's Mamba layers') ships
+    # whole, prefix hit or not (ROADMAP §3).
+    state = sum(v.numel() * v.element_size()
+                for k, v in make_decode_cache(cfg, 1, 0, "cpu").items() if k != "pos")
     if cfg.is_attention_free:
-        # The fixed state (f32 here) ships whole, prefix hit or not (ROADMAP §3).
-        state = sum(v.numel() * v.element_size()
-                    for k, v in make_decode_cache(cfg, 1, 0, "cpu").items() if k != "pos")
         ensure(sent == [state] * len(sent), ("state bytes", sent, state))
         ensure(build.LAUNCHES["rwkv_scan"] == cfg.n_layers * len(sent),
                ("rwkv_scan launches on the card", build.LAUNCHES))
     else:
+        ensure(all(n > state for n in sent), ("pages and state bytes", sent, state))
         ensure(any(n < sent[0] for n in sent), "no prefix hit in the small workload")
     say(f"[match] {cfg.name} f32: {len(sent)} requests, every result field equal "
         f"on the card and on the CPU; transfer bytes {sorted(set(sent))}")
 
 
 # ---------------------------------------------------------- phases 5, 7
-def phase_serve(arch: str, n_requests: int = 8):
-    """Serve the full-width workload; returns the launch counts of the run,
-    the served cluster and its prompts."""
-    from repro_torch.configs import get_spec
+def phase_serve(cfg, n_requests: int = 8):
+    """Serve the full-width workload on ``cfg``; returns the launch counts
+    of the run, the served cluster and its prompts."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import FULL, build_cluster, make_requests
     from repro_torch.models import state_bytes
     from repro_torch.serving import engine
 
-    cfg, workload = get_spec(arch).model, FULL
+    workload = FULL
     t0 = time.perf_counter()
     cluster = build_cluster(cfg, workload, scheduler="netkv-full", seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -725,7 +738,7 @@ def phase_serve(arch: str, n_requests: int = 8):
         want_launches = dict.fromkeys(build.LAUNCHES, 0) | {
             "rwkv_scan": cfg.n_layers * len(results)}
     else:
-        want_launches = dense_launches(cfg, workload, results, reqs, steps)
+        want_launches = attn_launches(cfg, workload, results, reqs, steps)
     ensure(launches == want_launches, (launches, want_launches))
     for r, w in zip(results, cluster.walls):
         say(f"[serve] req{r.request_id}: decode@{r.decode_instance} tier{r.tier} "
@@ -734,19 +747,26 @@ def phase_serve(arch: str, n_requests: int = 8):
             f"({w['decode_steps']} steps, {w['decode_s'] / w['decode_steps'] * 1e3:.2f}ms/step) "
             f"tokens={r.tokens[:6]}")
     say(f"[serve] {cfg.name}: {len(results)} requests in {wall:.2f}s wall; peak memory "
-        f"{peak / 1e9:.2f} GB; launches {launches}")
+        f"{peak / 1e9:.2f} GB; launches {launches}; transfer bytes "
+        f"{sorted({r.transfer_bytes for r in results})}")
     return launches, cluster, [r.prompt for r in reqs]
 
 
-def dense_launches(cfg, workload, results, reqs, steps) -> dict:
-    """Checks the pages each request of the dense serve shipped (repeats of
-    a prefix on one decode instance skip its hit pages); returns the launch
-    counts the run must show."""
+def attn_launches(cfg, workload, results, reqs, steps) -> dict:
+    """Checks the bytes each request of a serve with attention layers
+    shipped: the pages of its attention layers (repeats of a prefix on one
+    decode instance skip their hit pages) and, for a hybrid, the whole fixed
+    state of its Mamba layers; returns the launch counts the run must show
+    (one pack and one unpack a K/V leaf of a request with pages to ship,
+    one flash_decode an attention layer a step)."""
     from repro_torch.core.cost import B_TOK
     from repro_torch.kernels import build
+    from repro_torch.models import state_bytes
 
     page_bytes = B_TOK * cfg.n_kv_heads * cfg.d_head * 2
     prompt_pages = workload["prompt_len"] // B_TOK
+    fixed = state_bytes(cfg, 0)
+    kv_leaves = 2 * sum(b == "attn" for b in cfg.block_pattern)
     seen: dict[int, list] = {}
     shipping = 0
     for r, req in zip(results, sorted(reqs, key=lambda x: x.arrival)):
@@ -759,14 +779,14 @@ def dense_launches(cfg, workload, results, reqs, steps) -> dict:
                 same += 1
             hit = max(hit, same)
         seen.setdefault(r.decode_instance, []).append(req.prompt)
-        want = 2 * cfg.n_layers * (prompt_pages - hit) * page_bytes
+        want = 2 * cfg.n_attn_layers * (prompt_pages - hit) * page_bytes + fixed
         ensure(r.transfer_bytes == want, (r.request_id, r.transfer_bytes, want))
-        shipping += want > 0
-    full_bytes = 2 * cfg.n_layers * prompt_pages * page_bytes
+        shipping += hit < prompt_pages
+    full_bytes = 2 * cfg.n_attn_layers * prompt_pages * page_bytes + fixed
     ensure(any(r.transfer_bytes < full_bytes for r in results), "no repeat prefix hit")
     return dict.fromkeys(build.LAUNCHES, 0) | {
-        "flash_decode": cfg.n_layers * steps, "kv_pack": 2 * shipping,
-        "kv_unpack": 2 * shipping}
+        "flash_decode": cfg.n_attn_layers * steps, "kv_pack": kv_leaves * shipping,
+        "kv_unpack": kv_leaves * shipping}
 
 
 # ---------------------------------------------------------- phases 6, 8
@@ -918,6 +938,63 @@ def check_bitwise_steps(cluster, prompts) -> None:
     say(f"[serve] {cluster.cfg.name}: two prefills of a {len(prompts[0])}-token prompt and "
         f"two decode steps of {de.n_slots} slots at pos {de.cache['pos']}: logits and caches "
         f"bitwise equal")
+
+
+def mamba_bound(p: dict, b: int, s: int) -> tuple[float, str, float, float]:
+    """The mixer's bound for (B, S) tokens: the layer's weights, x, the
+    output and the f32 state (read at decode, written always) and the conv
+    tail moved once; the products' operations in bf16 and the scan's in f32
+    (exp(dt*A), dt*x*B, the multiply-add, the readout: 6 a state element a
+    step).  Returns (bound ms, by, bytes ms, operations ms)."""
+    es = p["in_proj"].element_size()
+    d, di = p["in_proj"].shape[0], p["conv_w"].shape[1]
+    n = p["a_log"].shape[1]
+    weights = sum(t.numel() * t.element_size() for t in p.values())
+    state = b * (di * n * 4 + 3 * di * es)
+    moved = weights + 2 * b * s * d * es + (2 if s == 1 else 1) * state
+    macs = sum(p[k].numel() for k in ("in_proj", "x_proj", "dt_proj", "out_proj"))
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    t_ops = (2 * b * s * macs / PEAK_FLOPS[torch.bfloat16]
+             + 6 * b * s * di * n / PEAK_FLOPS[torch.float32]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
+
+
+def time_mamba(model) -> None:
+    """The Mamba mixer alone at full width, on the served model's first
+    Mamba layer: a 2048-token prefill (B 1) and a decode step of 4 slots,
+    each traced (device time, runtime launches a call) and on the host
+    clock, beside its bound."""
+    from repro_torch.models import mamba_decode_step, mamba_forward
+
+    i = model.cfg.block_pattern.index("mamba")
+    p = {k: v[0] for k, v in model.layers[f"b{i}"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d, di = model.cfg.d_model, 2 * model.cfg.d_model
+    cd = model.cfg.compute_dtype
+    x = torch.randn((1, 2048, d), generator=gen, device="cuda").to(cd)
+    xd = torch.randn((4, 1, d), generator=gen, device="cuda").to(cd)
+    state = {"ssm": 0.01 * torch.randn((4, di, 16), generator=gen, device="cuda"),
+             "conv": torch.randn((4, 3, di), generator=gen, device="cuda").to(cd)}
+    out = {}
+    for label, fn, (b, s), n in (("prefill", lambda: mamba_forward(p, x), (1, 2048), 2),
+                                 ("decode", lambda: mamba_decode_step(p, xd, state), (4, 1), 20)):
+        y, st = fn()
+        ensure(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st["ssm"]).all()),
+               f"mamba {label}: a non-finite value")
+        wall = wall_time_ms(fn, n)
+        tr = traced(fn, n)
+        launches = sum(v for k, v in tr["runtime_per_call"].items() if "Launch" in k)
+        b_ms, b_by, t_bytes, t_ops = mamba_bound(p, b, s)
+        out[label] = dict(shape=f"x ({b}, {s}, {d}) {cd}", wall_ms=wall, device_ms=tr["device_ms"],
+                          traced_wall_ms=tr["wall_ms"], busy_share=tr["busy_share"],
+                          launches_per_call=launches, bound_ms=b_ms, bound_by=b_by,
+                          bytes_ms=t_bytes, operations_ms=t_ops, by_class_ms=tr["by_class_ms"])
+        say(f"[mamba] {label} x ({b}, {s}, {d}) {cd}: {wall:.2f} ms wall, device "
+            f"{tr['device_ms']:.3f} ms ({tr['busy_share']:.1%} busy traced), {launches:g} "
+            f"runtime launches a call; bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, "
+            f"operations {t_ops:.4f} ms); by class "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in tr["by_class_ms"].items()))
+    say("[mamba] " + json.dumps(out))
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1227,8 +1304,6 @@ def phase_simulate():
     """run_sim with K1 scoring on the card and on the CPU; the card runs also
     recompute every FlowPlane fixed point through waterfill_progressive.
     Returns the card runs' launch counts and the captured flow tables."""
-    import dataclasses
-
     from repro_torch.cluster import FlowPlane
     from repro_torch.kernels import build
     from repro_torch.kernels import netkv_score as ns
@@ -1424,6 +1499,18 @@ def check_waterfill_progressive(rows: dict, tables) -> None:
 # (the first 4 decisions, the third request's prefix hit among them, are
 # those of an 8-request serve).
 DENSE_SERVES = {"phi3-medium-14b": 4, "internlm2-20b": 4, "smollm-135m": 4}
+JAMBA = "jamba-v0.1-52b"
+# jamba is served with 16 of its 32 layers: two whole 8-layer periods, every
+# block kind and ratio kept; its 32 layers' bf16 weights (~103.1 GB) do not
+# fit one 80 GB card, and 24 (~77.6 GB) would leave too little for the rest.
+JAMBA_LAYERS = 16
+
+
+def full_config(arch: str):
+    from repro_torch.configs import get_spec
+
+    cfg = get_spec(arch).model
+    return dataclasses.replace(cfg, n_layers=JAMBA_LAYERS) if arch == JAMBA else cfg
 
 
 def free() -> None:
@@ -1463,25 +1550,37 @@ def main(argv=None) -> int:
     check_rwkv_scan(rows)
     lap("kernels")
     for arch in ("qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m", "arctic-480b",
-                 *DENSE_SERVES):
+                 *DENSE_SERVES, JAMBA):
         phase_match(arch)
     lap("match")
-    launches, cluster, prompts = phase_serve("qwen3-14b")
+    launches, cluster, prompts = phase_serve(full_config("qwen3-14b"))
     phase_trace(cluster, prompts)
     del cluster
     free()
-    rwkv_launches, cluster, prompts = phase_serve("rwkv6-3b")
+    rwkv_launches, cluster, prompts = phase_serve(full_config("rwkv6-3b"))
     phase_trace(cluster, prompts)
     del cluster
     free()
     launches["rwkv_scan"] = rwkv_launches["rwkv_scan"]
     lap("serve qwen3, rwkv6")
     # The attention models' launches of K2-K4 add up over their serves.
-    for arch in ("granite-moe-1b-a400m", *DENSE_SERVES):
-        more, cluster, prompts = phase_serve(arch, DENSE_SERVES.get(arch, 8))
-        if arch == "granite-moe-1b-a400m":
+    for arch in ("granite-moe-1b-a400m", *DENSE_SERVES, JAMBA):
+        cfg = full_config(arch)
+        if arch == JAMBA:
+            from repro_torch.configs import get_spec
+            from repro_torch.launch.serve import weight_bytes
+
+            say(f"[serve] {arch}: {cfg.n_layers} of its {get_spec(arch).model.n_layers} "
+                f"layers ({cfg.n_periods} whole periods of {len(cfg.block_pattern)}); the "
+                f"published depth's {weight_bytes(get_spec(arch).model) / 1e9:.1f} GB of bf16 "
+                f"weights do not fit one {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+                f" GB card, {cfg.n_layers} layers take {weight_bytes(cfg) / 1e9:.1f} GB")
+        more, cluster, prompts = phase_serve(cfg, DENSE_SERVES.get(arch, 8))
+        if arch in ("granite-moe-1b-a400m", JAMBA):
             phase_trace(cluster, prompts)
             check_bitwise_steps(cluster, prompts)
+        if arch == JAMBA:
+            time_mamba(cluster.model)
         del cluster
         free()
         for k in ("kv_pack", "kv_unpack", "flash_decode"):

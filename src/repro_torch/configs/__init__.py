@@ -1,9 +1,9 @@
 """Per-architecture configs of the port (``--arch <id>``).
 
 The dense models (llama3-70b, qwen3-14b, phi3-medium-14b, internlm2-20b,
-smollm-135m), the MoE models (granite-moe-1b-a400m, arctic-480b) and
-rwkv6-3b (RWKV-6) are ported; the other architectures of ``repro.configs``
-are queued in ROADMAP §1.
+smollm-135m), the MoE models (granite-moe-1b-a400m, arctic-480b), rwkv6-3b
+(RWKV-6) and jamba-v0.1-52b (Mamba, attention and MoE) are ported; the
+other architectures of ``repro.configs`` are queued in ROADMAP §1.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from .base import ArchSpec
 _MODULES = {"llama3-70b": "llama3_70b", "qwen3-14b": "qwen3_14b",
             "phi3-medium-14b": "phi3_medium_14b", "internlm2-20b": "internlm2_20b",
             "smollm-135m": "smollm_135m", "granite-moe-1b-a400m": "granite_moe_1b",
-            "arctic-480b": "arctic_480b", "rwkv6-3b": "rwkv6_3b"}
+            "arctic-480b": "arctic_480b", "rwkv6-3b": "rwkv6_3b",
+            "jamba-v0.1-52b": "jamba_v01_52b"}
 ALL = list(_MODULES)
 
 

@@ -1,0 +1,34 @@
+"""jamba-v0.1-52b [hybrid]: 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=65536, MoE 16e top-2 — Mamba+attn 1:7 interleave, MoE every 2nd layer.
+[arXiv:2403.19887; hf]
+
+Period of 8 layers: attention at position 4 (rest Mamba); MoE on odd
+positions (e:2 spacing), dense FFN elsewhere; Mamba layers carry no extra
+FFN at even positions per the published block diagram simplification.
+
+Per request the transfer carries KV pages for the attention layers (which a
+prefix hit shortens) and, whole, each Mamba layer's SSM and conv state.
+"""
+
+from ..models.model import ModelConfig
+from ..models.moe import MoEConfig
+from .base import ArchSpec
+
+_BLOCKS = ("mamba", "mamba", "mamba", "mamba", "attn", "mamba", "mamba", "mamba")
+_FFN = ("dense", "moe", "dense", "moe", "dense", "moe", "dense", "moe")
+
+CONFIG = ModelConfig(
+    name="jamba-v0.1-52b", d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+    d_head=128, d_ff=14336, vocab_size=65536,
+    block_pattern=_BLOCKS, ffn_pattern=_FFN,
+    moe=MoEConfig(n_experts=16, top_k=2, d_expert=14336, dispatch_chunks=8),
+    rope_theta=1e4,
+)
+SMOKE = ModelConfig(
+    name="jamba-52b-smoke", d_model=128, n_layers=8, n_heads=4, n_kv_heads=2,
+    d_head=32, d_ff=256, vocab_size=512,
+    block_pattern=_BLOCKS, ffn_pattern=_FFN,
+    moe=MoEConfig(n_experts=4, top_k=2, d_expert=256),
+)
+SPEC = ArchSpec(arch_id="jamba-v0.1-52b", model=CONFIG, smoke=SMOKE,
+                source="[arXiv:2403.19887; hf]")

@@ -1,5 +1,5 @@
-"""The port's models (dense, MoE and RWKV-6): config, parameters,
-prefill, decode."""
+"""The port's models (dense, MoE, RWKV-6 and the Mamba hybrid): config,
+parameters, prefill, decode."""
 
 from .convert import params_from_jax
 from .model import (
@@ -26,9 +26,11 @@ from .rwkv import (
     rwkv_time_mix,
     rwkv_time_mix_step,
 )
+from .ssm import mamba_decode_step, mamba_forward, mamba_param_specs
 
 __all__ = ["Model", "ModelConfig", "MoEConfig", "decode_step", "init_random_",
-           "make_decode_cache", "moe_ffn", "moe_param_specs", "moe_residual_param_specs",
+           "make_decode_cache", "mamba_decode_step", "mamba_forward",
+           "mamba_param_specs", "moe_ffn", "moe_param_specs", "moe_residual_param_specs",
            "moe_with_residual", "param_specs", "params_from_jax", "prefill",
            "rwkv_channel_mix", "rwkv_channel_mix_step", "rwkv_param_specs",
            "rwkv_time_mix", "rwkv_time_mix_step", "state_bytes"]

@@ -2,9 +2,10 @@
 
 The caller turns the JAX arrays into NumPy arrays (``np.asarray`` on every
 leaf); the port only ever sees NumPy.  The tree keeps the JAX layout:
-``{"embed", "out_norm", "lm_head", "layers": {"b0": {...}, "f0": {...}}}``
-(no ``f0`` for RWKV; the MoE periods nest their experts under ``f0.moe``)
-with per-layer leaves stacked over periods.
+``{"embed", "out_norm", "lm_head", "layers": {"b0": {...}, "f0": {...}, ...}}``
+with a ``b{i}`` and, where the position has an FFN, an ``f{i}`` for each
+position ``i`` of the period (no ``f{i}`` for RWKV; a MoE nests its experts
+under ``f{i}.moe``), every leaf stacked over periods.
 """
 
 from __future__ import annotations

@@ -1,16 +1,23 @@
 """The decoder models of the port: config, parameters, prefill and decode.
 
-A port of four periods of ``repro/models/model.py``: the dense transformer
-(``attn``/``dense``, qwen3-14b), attention with a MoE FFN (``attn``/``moe``,
-granite-moe-1b-a400m; ``attn``/``moe_res``, arctic-480b, with a parallel
-dense FFN) and RWKV-6 (``rwkv``/``none``, rwkv6-3b).
+A port of ``repro/models/model.py``.  A model is a stack of ``n_periods``
+identical periods; a period is a short sequence of blocks (``block_pattern``:
+``attn``, ``mamba`` or ``rwkv``) with a per-position FFN (``ffn_pattern``:
+``dense``, ``moe``, ``moe_res`` or ``none``; an RWKV block carries its own
+channel mix and takes no FFN).  The dense transformers (qwen3-14b) have the
+period ``attn``/``dense``; granite-moe-1b-a400m ``attn``/``moe``; arctic-480b
+``attn``/``moe_res`` (a MoE beside a dense FFN); rwkv6-3b ``rwkv``/``none``;
+jamba-v0.1-52b eight layers, one attention and seven Mamba blocks, dense and
+MoE FFNs in turn.
 The JAX package's layouts hold at every public function: weights are
 (d_in, d_out) and applied as ``x @ W``; per-layer tensors stay stacked over
-the period axis P (``layers.b0.wq`` is (P, d, H*dh)), and a Python loop over
-layers takes the place of ``lax.scan``; attention caches are (P, B, S, KV,
-dh), the layout ``serving.transfer.paged_view`` pages, and the RWKV state
-is ``wkv0`` (P, B, H, 64, 64) f32 with the shift states ``sa0``/``sc0``
-(P, B, d).
+the period axis P (``layers.b{i}.wq`` is (P, d, H*dh) for period position
+``i``), and a Python loop over periods and positions takes the place of
+``lax.scan``.  The decode cache holds, for each position ``i``: attention
+``k{i}``/``v{i}`` (P, B, S, KV, dh), the layout
+``serving.transfer.paged_view`` pages; Mamba ``ssm{i}`` (P, B, d_inner, 16)
+f32 and ``conv{i}`` (P, B, 3, d_inner); RWKV ``wkv{i}`` (P, B, H, 64, 64)
+f32 and the shift states ``sa{i}``/``sc{i}`` (P, B, d).
 
 Weights are stored once in ``compute_dtype``.  JAX keeps f32 parameters and
 casts every f32 tensor of more than one dimension to ``compute_dtype`` on
@@ -18,18 +25,18 @@ each call (the stacked per-layer norm scales included, since the period axis
 makes them 2-D) and gathers the embedding in f32 before the same cast.
 Storing those tensors in ``compute_dtype`` gives the same values, and saves
 an f32 copy that would not fit one card at qwen3-14b width (59 GB of f32
-plus a 30 GB cast copy).  The rule covers RWKV's small stacked leaves in
-the same way (checked against ``_backbone_seq``'s cast): ``decay_base``,
-``ln_x``, ``ln1``, ``ln2`` (P, d), ``bonus_u`` (P, H, 64), ``mu_base``
-(P, 5, d) and ``cm_mu`` (P, 2, d) reach the JAX blocks in
-``compute_dtype``, and the blocks upcast ``bonus_u`` and the decay
-exponent to f32 themselves.  The MoE leaves (``layers.f0.moe.*``, the
-router included) are stacked over P too, so they are stored in
-``compute_dtype``, and the router is up-cast to f32 where it is used, as in
-JAX.  ``out_norm`` is 1-D and stays f32, as in JAX.
+plus a 30 GB cast copy).  The rule covers every stacked leaf in the same way
+(checked against ``_backbone_seq``'s cast): RWKV's ``decay_base``, ``ln_x``,
+``ln1``, ``ln2`` (P, d), ``bonus_u`` (P, H, 64), ``mu_base`` (P, 5, d) and
+``cm_mu`` (P, 2, d); Mamba's ``conv_b``, ``dt_bias``, ``d_skip`` (P, d_inner)
+and ``a_log`` (P, d_inner, 16); the MoE leaves (``layers.f{i}.moe.*``, the
+router included).  The blocks up-cast what JAX up-casts, where it is used:
+RWKV's ``bonus_u`` and decay exponent, Mamba's ``a_log``, the router.
+``out_norm`` is 1-D and stays f32, as in JAX.
 
-Other block kinds (Mamba, cross-attention) are not ported yet (ROADMAP §1,
-other architectures) and raise ``NotImplementedError``.
+Not ported (ROADMAP §1 item 6): cross-attention and the encoder-decoder,
+the vision prefix (the port's config has no field for either), and
+attention with H % KV != 0, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,12 +59,10 @@ from .rwkv import (
     rwkv_time_mix,
     rwkv_time_mix_step,
 )
+from .ssm import D_CONV, D_STATE, mamba_decode_step, mamba_forward, mamba_param_specs
 
-# The ported periods: (block_pattern, ffn_pattern).
-PORTED = {(("attn",), ("dense",)): "dense", (("attn",), ("moe",)): "moe",
-          (("attn",), ("moe_res",)): "moe_res", (("rwkv",), ("none",)): "rwkv"}
-NOT_PORTED = ("only the attn/dense, attn/moe, attn/moe_res and rwkv/none periods are "
-              "ported; other block kinds are queued in ROADMAP §1 (other architectures)")
+BLOCKS = ("attn", "mamba", "rwkv")
+FFNS = ("dense", "moe", "moe_res", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,40 +101,38 @@ class ModelConfig:
         return self.n_periods * sum(1 for b in self.block_pattern if b == "attn")
 
 
-def period_kind(cfg: ModelConfig) -> str:
-    """``"dense"``, ``"moe"``, ``"moe_res"`` or ``"rwkv"``; raises on every
-    period not ported."""
-    kind = PORTED.get((tuple(cfg.block_pattern), tuple(cfg.ffn_pattern)))
-    if kind is None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")
-    return kind
+def _positions(cfg: ModelConfig):
+    """(i, block, ffn, has_ffn) for each position of the period; raises on
+    a kind JAX does not build, and on what the port does not run."""
+    for blk, ffn in zip(cfg.block_pattern, cfg.ffn_pattern):
+        if blk not in BLOCKS or ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: block {blk!r} / FFN {ffn!r}")
+    if not cfg.is_attention_free and cfg.n_heads % cfg.n_kv_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads; the "
+            "head-expanded attention for H % KV != 0 is queued in ROADMAP §1 item 6")
+    return [(i, blk, ffn, blk != "rwkv" and ffn != "none")
+            for i, (blk, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern))]
 
 
-def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
-    """Flat ``name -> InitSpec``; per-layer shapes carry the period axis."""
-    kind = period_kind(cfg)
-    d, h, kv, dh, p = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_periods
-    specs = {
-        "embed": InitSpec((cfg.vocab_size, d), scale=0.01),
-        "out_norm": InitSpec((d,), kind="ones"),
-        "lm_head": InitSpec((d, cfg.vocab_size)),
-    }
+def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, InitSpec]:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if kind == "mamba":
+        return {"ln": InitSpec((d,), kind="ones"), **mamba_param_specs(d)}
     if kind == "rwkv":
-        block = {"ln1": InitSpec((d,), kind="ones"), "ln2": InitSpec((d,), kind="ones"),
-                 **rwkv_param_specs(d, cfg.d_ff)}
-        specs.update({f"layers.b0.{name}": InitSpec((p, *s.shape), s.scale, s.kind)
-                      for name, s in block.items()})
-        return specs
-    specs.update({
-        "layers.b0.ln": InitSpec((p, d), kind="ones"),
-        "layers.b0.wq": InitSpec((p, d, h * dh)),
-        "layers.b0.wk": InitSpec((p, d, kv * dh)),
-        "layers.b0.wv": InitSpec((p, d, kv * dh)),
-        "layers.b0.wo": InitSpec((p, h * dh, d)),
-    })
+        return {"ln1": InitSpec((d,), kind="ones"), "ln2": InitSpec((d,), kind="ones"),
+                **rwkv_param_specs(d, cfg.d_ff)}
+    specs = {"ln": InitSpec((d,), kind="ones"), "wq": InitSpec((d, h * dh)),
+             "wk": InitSpec((d, kv * dh)), "wv": InitSpec((d, kv * dh)),
+             "wo": InitSpec((h * dh, d))}
     if cfg.qk_norm:
-        specs["layers.b0.q_norm"] = InitSpec((p, dh), kind="ones")
-        specs["layers.b0.k_norm"] = InitSpec((p, dh), kind="ones")
+        specs["q_norm"] = InitSpec((dh,), kind="ones")
+        specs["k_norm"] = InitSpec((dh,), kind="ones")
+    return specs
+
+
+def _ffn_specs(cfg: ModelConfig, kind: str) -> dict[str, InitSpec]:
+    d = cfg.d_model
     if kind == "dense":
         ffn = {"gate": InitSpec((d, cfg.d_ff)), "up": InitSpec((d, cfg.d_ff)),
                "down": InitSpec((cfg.d_ff, d))}
@@ -138,9 +141,23 @@ def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
     else:
         ffn = {f"moe.{k}": s for k, s in
                moe_residual_param_specs(d, cfg.d_ff, cfg.moe).items()}
-    specs["layers.f0.ln"] = InitSpec((p, d), kind="ones")
-    specs.update({f"layers.f0.{name}": InitSpec((p, *s.shape), s.scale, s.kind)
-                  for name, s in ffn.items()})
+    return {"ln": InitSpec((d,), kind="ones"), **ffn}
+
+
+def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
+    """Flat ``name -> InitSpec``; per-layer shapes carry the period axis."""
+    p = cfg.n_periods
+    specs = {
+        "embed": InitSpec((cfg.vocab_size, cfg.d_model), scale=0.01),
+        "out_norm": InitSpec((cfg.d_model,), kind="ones"),
+        "lm_head": InitSpec((cfg.d_model, cfg.vocab_size)),
+    }
+    for i, blk, ffn, has_ffn in _positions(cfg):
+        period = {f"b{i}.{k}": s for k, s in _block_specs(cfg, blk).items()}
+        if has_ffn:
+            period.update({f"f{i}.{k}": s for k, s in _ffn_specs(cfg, ffn).items()})
+        specs.update({f"layers.{name}": InitSpec((p, *s.shape), s.scale, s.kind)
+                      for name, s in period.items()})
     return specs
 
 
@@ -151,17 +168,17 @@ def storage_dtype(cfg: ModelConfig, spec: InitSpec) -> torch.dtype:
 
 class Model(nn.Module):
     """Parameters of one model, named as in the JAX parameter tree
-    (``embed``, ``out_norm``, ``lm_head``, ``layers.b0.*`` and, for the
-    dense and MoE periods, ``layers.f0.*``, the MoE's under
-    ``layers.f0.moe.*``); a subtree is a nested ``ParameterDict``.
+    (``embed``, ``out_norm``, ``lm_head``, ``layers.b{i}.*`` and, for a
+    position with an FFN, ``layers.f{i}.*``, the MoE's under
+    ``layers.f{i}.moe.*``); a subtree is a nested ``ParameterDict``.
     Allocated uninitialised; fill with :func:`init_random_` or
     ``convert.params_from_jax``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
-        dev = resolve_device(device)
         self.specs = param_specs(cfg)
+        dev = resolve_device(device)
         self.layers = nn.ModuleDict()
         for name, spec in self.specs.items():
             t = nn.Parameter(torch.empty(spec.shape, dtype=storage_dtype(cfg, spec),
@@ -206,35 +223,47 @@ def init_random_(model: Model, seed: int) -> Model:
 
 
 def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
-    """Zeroed decode cache and ``pos`` (a host int).  Dense and MoE: ``k0``/``v0``
-    (P, B, cache_len, KV, dh).  RWKV: ``wkv0`` (P, B, H, 64, 64) f32 and
-    ``sa0``/``sc0`` (P, B, d), whatever ``cache_len``."""
+    """Zeroed decode cache and ``pos`` (a host int): for each position ``i``
+    of the period, attention ``k{i}``/``v{i}`` (P, B, cache_len, KV, dh);
+    Mamba ``ssm{i}`` (P, B, d_inner, 16) f32 and ``conv{i}`` (P, B, 3,
+    d_inner); RWKV ``wkv{i}`` (P, B, H, 64, 64) f32 and ``sa{i}``/``sc{i}``
+    (P, B, d).  Only the attention leaves depend on ``cache_len``."""
     dev = resolve_device(device)
     p, cd = cfg.n_periods, cfg.compute_dtype
-    if period_kind(cfg) == "rwkv":
-        h = cfg.d_model // RWKV_HEAD_DIM
-        return {"wkv0": torch.zeros((p, batch, h, RWKV_HEAD_DIM, RWKV_HEAD_DIM),
-                                    dtype=torch.float32, device=dev),
-                "sa0": torch.zeros((p, batch, cfg.d_model), dtype=cd, device=dev),
-                "sc0": torch.zeros((p, batch, cfg.d_model), dtype=cd, device=dev),
-                "pos": 0}
-    shape = (p, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k0": torch.zeros(shape, dtype=cd, device=dev),
-            "v0": torch.zeros(shape, dtype=cd, device=dev),
-            "pos": 0}
+
+    def zeros(*shape, dtype=cd):
+        return torch.zeros((p, batch, *shape), dtype=dtype, device=dev)
+
+    cache = {}
+    for i, blk, _, _ in _positions(cfg):
+        if blk == "attn":
+            cache[f"k{i}"] = zeros(cache_len, cfg.n_kv_heads, cfg.d_head)
+            cache[f"v{i}"] = zeros(cache_len, cfg.n_kv_heads, cfg.d_head)
+        elif blk == "mamba":
+            cache[f"ssm{i}"] = zeros(2 * cfg.d_model, D_STATE, dtype=torch.float32)
+            cache[f"conv{i}"] = zeros(D_CONV - 1, 2 * cfg.d_model)
+        else:
+            h = cfg.d_model // RWKV_HEAD_DIM
+            cache[f"wkv{i}"] = zeros(h, RWKV_HEAD_DIM, RWKV_HEAD_DIM, dtype=torch.float32)
+            cache[f"sa{i}"] = zeros(cfg.d_model)
+            cache[f"sc{i}"] = zeros(cfg.d_model)
+    cache["pos"] = 0
+    return cache
 
 
 def state_bytes(cfg: ModelConfig, seq_len: int) -> int:
     """Transferred decode-state bytes for one request (Eq. 1 generalised)."""
+    total = 0
     p = cfg.n_periods
-    if period_kind(cfg) == "rwkv":
-        h = cfg.d_model // RWKV_HEAD_DIM
-        return p * (h * RWKV_HEAD_DIM * RWKV_HEAD_DIM * 4 + 2 * cfg.d_model * 2)
-    return 2 * p * seq_len * cfg.n_kv_heads * cfg.d_head * 2
-
-
-def _layer(model: Model, i: int, block: str) -> dict:
-    return _slice(model.layers[block], i)
+    for _, blk, _, _ in _positions(cfg):
+        if blk == "attn":
+            total += 2 * p * seq_len * cfg.n_kv_heads * cfg.d_head * 2
+        elif blk == "mamba":
+            total += p * (2 * cfg.d_model * D_STATE * 4 + (D_CONV - 1) * 2 * cfg.d_model * 2)
+        else:
+            h = cfg.d_model // RWKV_HEAD_DIM
+            total += p * (h * RWKV_HEAD_DIM * RWKV_HEAD_DIM * 4 + 2 * cfg.d_model * 2)
+    return total
 
 
 def _slice(node: nn.ParameterDict, i: int) -> dict:
@@ -256,13 +285,18 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
     return rotate(q, cos, sin), rotate(k, cos, sin), v
 
 
-def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The period's FFN on the normed x; serving drops the MoE aux loss."""
+def _ffn(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The position's FFN on the normed x; serving drops the MoE aux loss."""
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    kind = period_kind(cfg)
     if kind == "dense":
         return swiglu(xn, p["gate"], p["up"], p["down"])
     return (moe_ffn if kind == "moe" else moe_with_residual)(xn, p["moe"], cfg.moe)[0]
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE tables for the attention blocks; None for an attention-free model."""
+    return None if cfg.is_attention_free else rope_tables(positions, cfg.d_head,
+                                                          cfg.rope_theta)
 
 
 def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
@@ -273,49 +307,49 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
 def prefill(model: Model, tokens: torch.Tensor, cache_len: int | None = None):
     """Run the prompt (B, S); return (last-token logits (B, 1, V), cache).
 
-    Dense and MoE: the K/V leaves are allocated at ``cache_len`` (>= S) and zero
+    The attention K/V leaves are allocated at ``cache_len`` (>= S) and zero
     past the prompt, the JAX version's padding, so decode can append in
-    place.  RWKV: each layer's final WKV state and last shift inputs."""
+    place.  Mamba and RWKV leaves hold each layer's final state."""
     cfg = model.cfg
     b, s = tokens.shape
     cache = make_decode_cache(cfg, b, cache_len or s, model.device)
+    rope = _rope(cfg, torch.arange(s, device=model.device)[None, :])
     x = model.embed[tokens]
-    if period_kind(cfg) == "rwkv":
-        x = _prefill_rwkv(model, x, cache)
-    else:
-        x = _prefill_dense(model, x, cache)
+    for per in range(cfg.n_periods):
+        x = _period_seq(model, per, x, cache, rope)
     cache["pos"] = s
     return _logits(model, x[:, -1:]), cache
 
 
-def _prefill_dense(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
+def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict, rope) -> torch.Tensor:
+    """Period ``per`` over the prompt; writes its slice of every cache leaf.
+    RWKV's time mix runs its recurrence through ``ops.rwkv_scan``."""
     cfg = model.cfg
+    eps = cfg.norm_eps
     b, s, _ = x.shape
-    cos, sin = rope_tables(torch.arange(s, device=model.device)[None, :],
-                           cfg.d_head, cfg.rope_theta)
-    for i in range(cfg.n_periods):
-        pa, pf = _layer(model, i, "b0"), _layer(model, i, "f0")
-        q, k, v = _qkv(cfg, pa, x, cos, sin)
-        att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
-        x = x + att.reshape(b, s, -1) @ pa["wo"]
-        cache["k0"][i, :, :s] = k
-        cache["v0"][i, :, :s] = v
-        x = x + _ffn(cfg, pf, x)
-    return x
-
-
-def _prefill_rwkv(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
-    """The time mix's recurrence runs through ``ops.rwkv_scan``."""
-    eps = model.cfg.norm_eps
-    for i in range(model.cfg.n_periods):
-        p = _layer(model, i, "b0")
-        out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps))
-        x = x + out
-        out, last2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], eps))
-        x = x + out
-        cache["wkv0"][i] = wkv
-        cache["sa0"][i] = last
-        cache["sc0"][i] = last2
+    for i, blk, ffn, has_ffn in _positions(cfg):
+        p = _slice(model.layers[f"b{i}"], per)
+        if blk == "attn":
+            q, k, v = _qkv(cfg, p, x, *rope)
+            att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
+            x = x + att.reshape(b, s, -1) @ p["wo"]
+            cache[f"k{i}"][per, :, :s] = k
+            cache[f"v{i}"][per, :, :s] = v
+        elif blk == "mamba":
+            out, state = mamba_forward(p, rms_norm(x, p["ln"], eps))
+            x = x + out
+            cache[f"ssm{i}"][per] = state["ssm"]
+            cache[f"conv{i}"][per] = state["conv"]
+        else:
+            out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps))
+            x = x + out
+            out, last2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], eps))
+            x = x + out
+            cache[f"wkv{i}"][per] = wkv
+            cache[f"sa{i}"][per] = last
+            cache[f"sc{i}"][per] = last2
+        if has_ffn:
+            x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
     return x
 
 
@@ -325,48 +359,50 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict):
     by one.
 
     The cache is updated in place (JAX returns an updated copy; writing in
-    place saves a cache copy per layer).  Dense and MoE: the new K/V rows land at
-    the scalar ``pos`` and attention runs through ``ops.flash_decode`` over
-    the first pos+1 entries.  RWKV: each layer's WKV and shift states are
+    place saves a cache copy per layer).  Attention: the new K/V rows land
+    at the scalar ``pos`` and attention runs through ``ops.flash_decode``
+    over the first pos+1 entries.  Mamba and RWKV: each layer's states are
     overwritten by the step's (plain PyTorch, as in JAX)."""
     cfg = model.cfg
+    pos = int(cache["pos"])
+    rope = _rope(cfg, torch.full((1, 1), pos, device=model.device))
     x = model.embed[token]
-    if period_kind(cfg) == "rwkv":
-        x = _decode_rwkv(model, x, cache)
-    else:
-        x = _decode_dense(model, x, cache)
-    cache["pos"] = int(cache["pos"]) + 1
+    for per in range(cfg.n_periods):
+        x = _period_decode(model, per, x, cache, pos, rope)
+    cache["pos"] = pos + 1
     return _logits(model, x), cache
 
 
-def _decode_dense(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
+def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos: int,
+                   rope) -> torch.Tensor:
     cfg = model.cfg
-    pos = int(cache["pos"])
+    eps = cfg.norm_eps
     b = x.shape[0]
-    cos, sin = rope_tables(torch.full((1, 1), pos, device=model.device),
-                           cfg.d_head, cfg.rope_theta)
-    for i in range(cfg.n_periods):
-        pa, pf = _layer(model, i, "b0"), _layer(model, i, "f0")
-        q, k, v = _qkv(cfg, pa, x, cos, sin)
-        k_cache, v_cache = cache["k0"][i], cache["v0"][i]
-        k_cache[:, pos] = k[:, 0]
-        v_cache[:, pos] = v[:, 0]
-        att = ops.flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
-        x = x + att.reshape(b, 1, -1) @ pa["wo"]
-        x = x + _ffn(cfg, pf, x)
-    return x
-
-
-def _decode_rwkv(model: Model, x: torch.Tensor, cache: dict) -> torch.Tensor:
-    eps = model.cfg.norm_eps
-    for i in range(model.cfg.n_periods):
-        p = _layer(model, i, "b0")
-        wkv, sa, sc = cache["wkv0"][i], cache["sa0"][i], cache["sc0"][i]
-        out, new_wkv, last = rwkv_time_mix_step(p, rms_norm(x, p["ln1"], eps), wkv, sa)
-        x = x + out
-        out, last2 = rwkv_channel_mix_step(p, rms_norm(x, p["ln2"], eps), sc)
-        x = x + out
-        wkv.copy_(new_wkv)
-        sa.copy_(last)
-        sc.copy_(last2)
+    for i, blk, ffn, has_ffn in _positions(cfg):
+        p = _slice(model.layers[f"b{i}"], per)
+        if blk == "attn":
+            q, k, v = _qkv(cfg, p, x, *rope)
+            k_cache, v_cache = cache[f"k{i}"][per], cache[f"v{i}"][per]
+            k_cache[:, pos] = k[:, 0]
+            v_cache[:, pos] = v[:, 0]
+            att = ops.flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
+            x = x + att.reshape(b, 1, -1) @ p["wo"]
+        elif blk == "mamba":
+            ssm, conv = cache[f"ssm{i}"][per], cache[f"conv{i}"][per]
+            out, state = mamba_decode_step(p, rms_norm(x, p["ln"], eps),
+                                           {"ssm": ssm, "conv": conv})
+            x = x + out
+            ssm.copy_(state["ssm"])
+            conv.copy_(state["conv"])
+        else:
+            wkv, sa, sc = cache[f"wkv{i}"][per], cache[f"sa{i}"][per], cache[f"sc{i}"][per]
+            out, new_wkv, last = rwkv_time_mix_step(p, rms_norm(x, p["ln1"], eps), wkv, sa)
+            x = x + out
+            out, last2 = rwkv_channel_mix_step(p, rms_norm(x, p["ln2"], eps), sc)
+            x = x + out
+            wkv.copy_(new_wkv)
+            sa.copy_(last)
+            sc.copy_(last2)
+        if has_ffn:
+            x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
     return x

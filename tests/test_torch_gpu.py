@@ -88,6 +88,7 @@ def test_flash_decode_matches_plain(cuda, dtype, b, h, kv, dh, s):
     (4, 40, 10, 128, 4096),  # phi3-medium-14b: G 4
     (4, 48, 8, 128, 4096),  # internlm2-20b: G 6
     (4, 9, 3, 64, 4096),    # smollm-135m: G 3, dh 64
+    (4, 32, 8, 128, 4096),  # jamba-v0.1-52b: G 4
 ])
 def test_flash_decode_split_boundaries(cuda, dtype, b, h, kv, dh, s):
     """K4 where the split shows: one range (pos under one range), pos on a
@@ -619,3 +620,61 @@ def test_moe_ffn_is_deterministic(cuda, b, s):
     first, second = moe_ffn(x, params, full.moe), moe_ffn(x, params, full.moe)
     assert first[0].dtype == torch.bfloat16 and bool(torch.isfinite(first[0]).all())
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def _mamba_inputs(device, d, b, s, dtype, seed):
+    """One Mamba layer's parameters at width ``d`` (a_log, dt_bias and
+    conv_b drawn too, so no term is trivial), x (B, S, d) and a decode
+    input (B, 1, d), from a seeded generator on the CPU."""
+    from repro_torch.models import mamba_param_specs
+
+    gen = torch.Generator().manual_seed(seed)
+    params = {k: (spec.scale * torch.randn(spec.shape, generator=gen)).to(dtype)
+              for k, spec in mamba_param_specs(d).items()}
+    params["a_log"] = torch.rand(params["a_log"].shape, generator=gen).to(dtype)
+    params["d_skip"] = torch.ones_like(params["d_skip"])
+    x = torch.randn((b, s, d), generator=gen).to(dtype)
+    xd = torch.randn((b, 1, d), generator=gen).to(dtype)
+    return ({k: v.to(device) for k, v in params.items()}, x.to(device), xd.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [40, 300])
+def test_mamba_on_card_matches_cpu(cuda, dtype, s):
+    """The Mamba mixer at d_model 128 (S 300 crosses a time block): prefill
+    output and final state, then one decode step, on the card against the
+    CPU; f32 within 1e-5 x max(1, max|ref|), bf16 within 2^-6 x max|ref|
+    (tests/test_torch_ssm.py's tolerances against JAX)."""
+    from repro_torch.models import mamba_decode_step, mamba_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, x, xd = _mamba_inputs(cuda, 128, 2, s, dtype, s)
+    on_cpu = {k: v.cpu() for k, v in params.items()}
+
+    def held(got, want):
+        want = want.float()
+        scale = want.abs().max().item()
+        tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -6 * scale
+        assert (got.cpu().float() - want).abs().max().item() <= tol
+
+    out, st = mamba_forward(params, x)
+    out_c, st_c = mamba_forward(on_cpu, x.cpu())
+    for got, want in ((out, out_c), (st["ssm"], st_c["ssm"]), (st["conv"], st_c["conv"])):
+        held(got, want)
+    step, st1 = mamba_decode_step(params, xd, {k: v.to(cuda) for k, v in st_c.items()})
+    step_c, st1_c = mamba_decode_step(on_cpu, xd.cpu(), st_c)
+    for got, want in ((step, step_c), (st1["ssm"], st1_c["ssm"]), (st1["conv"], st1_c["conv"])):
+        held(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_is_deterministic(cuda, dtype):
+    """Two prefills and two decode steps on the same inputs are bitwise
+    equal."""
+    from repro_torch.models import mamba_decode_step, mamba_forward
+
+    params, x, xd = _mamba_inputs(cuda, 256, 2, 300, dtype, 3)
+    (o1, s1), (o2, s2) = mamba_forward(params, x), mamba_forward(params, x)
+    assert torch.equal(o1, o2) and all(torch.equal(s1[k], s2[k]) for k in s1)
+    (d1, t1), (d2, t2) = mamba_decode_step(params, xd, s1), mamba_decode_step(params, xd, s1)
+    assert torch.equal(d1, d2) and all(torch.equal(t1[k], t2[k]) for k in t1)

@@ -215,11 +215,11 @@ class TestKernelBackend:
         assert kern.select(RequestInfo(0, 8192, 1e9), 0, cv, view) is None
 
     def test_unported_paths_raise(self):
-        """The Mamba, encoder-decoder and vision architectures are not
-        ported: asking for one raises and names ROADMAP."""
+        """The encoder-decoder and vision architectures are not ported:
+        asking for one raises and names ROADMAP."""
         from repro_torch.configs import get_spec as port_spec
 
-        for arch in ("jamba-v0.1-52b", "seamless-m4t-medium", "internvl2-76b"):
+        for arch in ("seamless-m4t-medium", "internvl2-76b"):
             with pytest.raises(KeyError, match="ROADMAP"):
                 port_spec(arch)
 
