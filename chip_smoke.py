@@ -24,15 +24,20 @@ Phases, in order; every check asserts and any failure exits non-zero:
               range, a range's edge and one past it, G 8, dh 16-256), with
               its ranges, grid and launches a call, and at the decode shapes
               of granite-moe (G 2, dh 64; timed too), phi3 (G 4), internlm2
-              (G 6), smollm (G 3, dh 64) and jamba (G 4, dh 128; timed
-              too); rwkv_scan also at ragged
+              (G 6), smollm (G 3, dh 64), jamba (G 4, dh 128), seamless's
+              self-attention (G 1, dh 64, pos 264) and cross-attention (S
+              2048, pos 2048) and internvl2 (G 8, dh 128, pos 2312), each
+              timed but phi3's, internlm2's and smollm's; and through the
+              padded-head path (H 6 over KV 4, timed); rwkv_scan also at ragged
               T, B 2, dh 16-128 across its column groups and in bf16; both
               deterministic (two calls bitwise equal)
   4. match    the serving path on the card against the same path on the CPU
               (the plain versions), the smoke configs of qwen3-14b, rwkv6,
               granite-moe, arctic (MoE with a dense residual), phi3,
-              internlm2, smollm and jamba (Mamba, attention and MoE in one
-              8-layer period) in f32: every result equal
+              internlm2, smollm, jamba (Mamba, attention and MoE in one
+              8-layer period) and internvl2 (text only) in f32: every result
+              equal; the seamless smoke model's encode, prefill and 6 decode
+              steps: tokens equal, memory and logits within 1e-4
   5. serve    qwen3-14b at full width (bf16, random weights from a seed):
               2 prefill + 4 decode instances, 8 requests of 2048 tokens, 16
               new tokens each; launch counts of kv_pack/kv_unpack/flash_decode
@@ -59,6 +64,18 @@ Phases, in order; every check asserts and any failure exits non-zero:
               and the Mamba mixer alone at full width (a 2048-token prefill
               and a 4-slot decode step: device and wall ms, runtime
               launches a call, bound)
+ 8d. model    seamless-m4t-medium at full width, nothing cut (12 encoder and
+              12 decoder layers, 977,758,208 parameters): encode 4 x 2048
+              stub frames, prefill 4 x 256 tokens with that memory at
+              cache_len 4096, 16 decode steps (8 on the host clock, 4 warm-up
+              and 4 traced); flash_decode 24 calls a step (self- and
+              cross-attention); the encode, prefill and step traced; two
+              prefills and two decode steps bitwise equal
+ 8e. serve    internvl2-76b at full width with 24 of its 80 layers (80 do not
+              fit one card): the cluster serves 4 requests of 2048 tokens,
+              text only as the JAX cluster (201,326,592 B a request,
+              100,663,296 on a 64-page hit); then on its weights phase 8d's
+              run with 4 x (256 stub patch embeddings + 2048 tokens)
   9. decide   200 netkv-full decisions through the netkv_score_cohort kernel
               and 200 on the NumPy backend over pools of 16-8192 instances,
               each kernel pick within rtol 1e-5 of the NumPy minimum; µs a
@@ -327,12 +344,69 @@ def time_flash_decode(q, k, v, pos: int) -> dict:
                 shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} pos {pos}")
 
 
-# The decode shapes (B 4 slots, S cache_len 4096) of the other attention
-# models served at full width: (H, KV, dh).  Those of TIMED are timed too.
-K4_DECODE_SHAPES = {"granite-moe-1b-a400m": (16, 8, 64), "phi3-medium-14b": (40, 10, 128),
-                    "internlm2-20b": (48, 8, 128), "smollm-135m": (9, 3, 64),
-                    "jamba-v0.1-52b": (32, 8, 128)}
-TIMED = {"granite-moe-1b-a400m": "granite", "jamba-v0.1-52b": "jamba"}
+# The decode shapes (B 4 slots) of the other attention models run at full
+# width: (H, KV, dh, S), S the cache_len 4096 but for seamless's
+# cross-attention, which reads the encoder's 2048 frames whole.
+K4_DECODE_SHAPES = {"granite-moe-1b-a400m": (16, 8, 64, 4096),
+                    "phi3-medium-14b": (40, 10, 128, 4096),
+                    "internlm2-20b": (48, 8, 128, 4096), "smollm-135m": (9, 3, 64, 4096),
+                    "jamba-v0.1-52b": (32, 8, 128, 4096),
+                    "seamless-m4t-medium": (16, 16, 64, 4096),
+                    "seamless-m4t-medium cross": (16, 16, 64, 2048),
+                    "internvl2-76b": (64, 8, 128, 4096)}
+# Those timed too, by their name in the kernel row: (shape, pos).  seamless
+# decodes at pos 256-272 after its 256-token prefill, its cross-attention at
+# pos S_enc; internvl2 at 2304-2320 after 256 patches and 2048 tokens.
+TIMED = {"granite": ("granite-moe-1b-a400m", 2056), "jamba": ("jamba-v0.1-52b", 2056),
+         "seamless_self": ("seamless-m4t-medium", 264),
+         "seamless_cross": ("seamless-m4t-medium cross", 2048),
+         "internvl2": ("internvl2-76b", 2312)}
+# The padded-head path (H % KV != 0, no registered config): (H, KV, dh, S).
+K4_PADDED = (6, 4, 128, 4096)
+
+
+def check_padded_heads(inputs, held) -> dict:
+    """K4 where H % KV != 0: ``kernel_decode_attention`` pads q with zero
+    heads to KV * ceil(H/KV) and keeps the first H outputs.  Held to the
+    head-expanded plain reference (``decode_attention``, f32) and to K4's
+    plain version on the padded q; timed as the kernel on the padded q, and
+    as the whole wrapper with its pad and slice."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.models.attention import decode_attention, kernel_decode_attention
+
+    h, kv, dh, s = K4_PADDED
+    g = -(-h // kv)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(4, h, kv, dh, s, dtype)
+        qp = torch.cat([q, q.new_zeros((4, kv * g - h, dh))], dim=1)
+        for pos in (1, 2056, s):
+            before = build.LAUNCHES["flash_decode"]
+            out = kernel_decode_attention(q, k, v, pos)
+            ensure(build.LAUNCHES["flash_decode"] == before + 1, "padded heads: one K4 call")
+            ensure(torch.equal(out, kernel_decode_attention(q, k, v, pos)),
+                   "padded heads: two calls differ")
+            held(qp, k, v, pos, f"padded heads H {h} KV {kv} {dtype}")
+            if dtype == torch.float32:
+                plain = decode_attention(q[:, None], k, v, pos)[:, 0]
+                err = (out - plain).abs().max().item()
+                ensure(err <= FD_TOL[dtype][1], f"padded heads vs decode_attention: {err}")
+    q, k, v = inputs(4, h, kv, dh, s, torch.bfloat16)
+    qp = torch.cat([q, q.new_zeros((4, kv * g - h, dh))], dim=1)
+    t = time_flash_decode(qp, k, v, 2056)
+    t["wrapper_ms"] = device_time_ms(lambda: kernel_decode_attention(q, k, v, 2056), 100)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device="cuda") < 2056)[None, None, None, :]
+    t["library_ms"] = device_time_ms(lambda: F.scaled_dot_product_attention(
+        qp[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True), 100)
+    t["shape"] = (f"q (4, {h}, {dh}) padded to {kv * g} heads, k/v (4, {s}, {kv}, {dh}) "
+                  "bf16, pos 2056")
+    say(f"[kernels] flash_decode, padded heads (H {h} over KV {kv}, G {g}, dh {dh}, pos 2056): "
+        f"{t['ms']:.4f} ms the kernel, {t['wrapper_ms']:.4f} ms with pad and slice, SDPA on "
+        f"the padded q {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); bf16 and f32 held at pos 1, 2056, {s}")
+    return t
 
 
 def check_flash_decode(rows: dict) -> None:
@@ -364,19 +438,23 @@ def check_flash_decode(rows: dict) -> None:
             say(f"[kernels] flash_decode B {b} H {h} KV {kv} dh {dh} S {s} {dtype}: pos {poss}, "
                 f"up to {fd.plan_for(q, k, s).n_split} ranges, max abs err {err:.3g}")
     timed = {}
-    for arch, (h, kv, dh) in K4_DECODE_SHAPES.items():
-        b, s = 4, 4096
+    for arch, (h, kv, dh, s) in K4_DECODE_SHAPES.items():
+        b = 4
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(b, h, kv, dh, s, dtype)
-            poss = [1, *range_edges(q, k, s), 2056, s]
+            poss = sorted({1, *range_edges(q, k, s), *(p for _, p in TIMED.values() if p <= s), s})
             err = max(held(q, k, v, pos, f"{arch} {dtype}") for pos in poss)
             say(f"[kernels] flash_decode at {arch}'s decode shape (B {b} H {h} KV {kv} G "
                 f"{h // kv} dh {dh} S {s}) {dtype}: pos {poss}, max abs err {err:.3g}")
-            if arch in TIMED and dtype == torch.bfloat16:
-                t = timed[TIMED[arch]] = time_flash_decode(q, k, v, 2056)
-                say(f"[kernels] flash_decode at {TIMED[arch]}'s decode shape: {t['ms']:.4f} ms a "
-                    f"call, SDPA {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            if dtype != torch.bfloat16:
+                continue
+            for name, (shape, pos) in TIMED.items():
+                if shape == arch:
+                    t = timed[name] = time_flash_decode(q, k, v, pos)
+                    say(f"[kernels] flash_decode at {name}'s decode shape: {t['ms']:.4f} ms a "
+                        f"call, SDPA {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    timed["padded"] = check_padded_heads(inputs, held)
     b, h, kv, dh, s = 4, 40, 8, 128, 4096
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(b, h, kv, dh, s, dtype)
@@ -679,6 +757,40 @@ def phase_match(arch: str) -> None:
         f"on the card and on the CPU; transfer bytes {sorted(set(sent))}")
 
 
+def match_encdec() -> None:
+    """The seamless smoke model in f32 through its entry points, on the card
+    (self- and cross-attention on K4) and on the CPU (the plain versions):
+    encode, prefill with the memory and 6 greedy decode steps; the memory
+    and every logit within 1e-4, the greedy tokens equal."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, decode_step, encode, init_random_, prefill
+
+    cfg = dataclasses.replace(get_spec("seamless-m4t-medium").smoke, compute_dtype=torch.float32)
+    on_cpu = init_random_(Model(cfg, device="cpu"), 0)
+    on_card = Model(cfg, device="cuda")
+    on_card.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
+    out = {}
+    for device, model in (("cpu", on_cpu), ("cuda", on_card)):
+        memory = encode(model, frames.to(device))
+        logits, cache = prefill(model, prompt.to(device), memory=memory, cache_len=64)
+        seen, tokens = [logits], []
+        for _ in range(6):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            tokens.append(tok.cpu())
+            logits, cache = decode_step(model, tok, cache)
+            seen.append(logits)
+        out[device] = (memory.cpu(), torch.cat(seen, 1).cpu(), torch.cat(tokens, 1))
+    (mc, lc, tc), (mg, lg, tg) = out["cpu"], out["cuda"]
+    ensure(torch.equal(tc, tg), ("seamless smoke tokens differ", tc, tg))
+    err = max((mg - mc).abs().max().item(), (lg - lc).abs().max().item())
+    ensure(err <= 1e-4, f"seamless smoke: card and CPU differ by {err}")
+    say(f"[match] {cfg.name} f32: encode, prefill and 6 decode steps, tokens equal on the "
+        f"card and on the CPU, memory and logits within {err:.3g}")
+
+
 # ---------------------------------------------------------- phases 5, 7
 def phase_serve(cfg, n_requests: int = 8):
     """Serve the full-width workload on ``cfg``; returns the launch counts
@@ -903,17 +1015,26 @@ def phase_trace(cluster, prompts) -> None:
     prefill = traced(lambda: pe.run(0, prompts[0]), 1, moe)
     say(f"[trace] {name} decode step (batch {de.n_slots}, pos ~{len(prompts[0])}): "
         f"{step_ms:.2f} ms wall untraced")
-    launches = sum(v for k, v in decode["runtime_per_call"].items() if "Launch" in k)
+    say_traces(cluster.cfg, {"decode step": decode, "prefill": prefill})
+    say("[trace] " + json.dumps(dict(model=name, decode_step_ms=step_ms, decode_trace=decode,
+                                     prefill_trace=prefill)))
+
+
+def say_traces(cfg, traces: dict) -> None:
+    """Print traces of ``cfg``'s model: the decode step's runtime launches
+    a step and a (decoder) layer, then each trace's wall, device busy time
+    by class and its 8 longest kernels (popped from the trace)."""
+    name = cfg.name
+    launches = sum(v for k, v in traces["decode step"]["runtime_per_call"].items()
+                   if "Launch" in k)
     say(f"[trace] {name} decode step: {launches:g} runtime launches a step, "
-        f"{launches / cluster.cfg.n_layers:.1f} a layer")
-    for label, tr in (("decode step", decode), ("prefill", prefill)):
+        f"{launches / cfg.n_layers:.1f} a layer")
+    for label, tr in traces.items():
         say(f"[trace] {name} traced {label}: wall {tr['wall_ms']:.2f} ms, device busy "
             f"{tr['device_ms']:.2f} ms ({tr['busy_share']:.1%}); by class "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in tr["by_class_ms"].items()))
         for us, count, key in tr.pop("top"):
             say(f"[trace]     {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    say("[trace] " + json.dumps(dict(model=name, decode_step_ms=step_ms, decode_trace=decode,
-                                     prefill_trace=prefill)))
 
 
 def check_bitwise_steps(cluster, prompts) -> None:
@@ -995,6 +1116,197 @@ def time_mamba(model) -> None:
             f"operations {t_ops:.4f} ms); by class "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in tr["by_class_ms"].items()))
     say("[mamba] " + json.dumps(out))
+
+
+# ---------------------------------------------------------- phases 8d, 8e
+SEAMLESS = "seamless-m4t-medium"
+INTERNVL2 = "internvl2-76b"
+# internvl2 runs with 24 of its 80 layers: 80 hold 141.1 GB of bf16 weights,
+# more than one 80 GB card; 24 hold 45.3 GB and leave room for the four
+# decode engines' caches (6.44 GB) and a 4 x 2304-token prefill.
+INTERNVL2_LAYERS = 24
+# The model-level runs: batch 4; seamless encodes 2048 stub frames and
+# prefills 256 decoder tokens (ArchSpec.input_specs' prefill shape of an
+# encoder-decoder); internvl2 prefills 256 stub patch embeddings and 2048
+# tokens; then 16 greedy decode steps, 8 on the host clock and traced(4)
+# (4 warm-up steps and 4 traced).
+MODEL_BATCH, ENC_FRAMES, DEC_TOKENS, VISION_TOKENS = 4, 2048, 256, 2048
+DECODE_STEPS = 16
+
+
+def model_decode(model, cache, logits):
+    """DECODE_STEPS greedy decode steps of the batch in ``cache`` after the
+    prefill's ``logits``, each ending in the host read of its tokens, as the
+    decode engine's: returns (host ms a step of the 8 untraced, the trace)."""
+    from repro_torch.models import decode_step
+
+    tok = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
+    finite = []
+
+    def step():
+        out, _ = decode_step(model, tok[0], cache)
+        finite.append(torch.isfinite(out).all())
+        tok[0] = torch.argmax(out[:, -1], dim=-1)[:, None]
+        tok[0].tolist()
+
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 8
+    tr = traced(step, 4)
+    ensure(len(finite) == DECODE_STEPS and all(bool(f) for f in finite), "a non-finite logit")
+    return step_ms, tr
+
+
+def model_bounds(model, b: int, s: int, s_enc: int) -> dict:
+    """Least times (ms) of the run's two device calls at the card's peaks.
+    A decode step at ``s`` cached positions reads every weight it uses once
+    (all but the embedding, the encoder and the cross K/V projections,
+    which run once a prefill), the self K/V of ``s`` positions and the
+    cross K/V of ``s_enc``.  A prefill of ``s`` positions does 2 operations
+    a weight a position in its products (the decoder's; the cross
+    projections over ``s_enc`` frames; ``lm_head`` at the last position)
+    and 4·H·dh a (query, key) pair in attention: the causal half of S² for
+    self-attention, S·S_enc for cross-attention."""
+    cfg = model.cfg
+    es = torch.tensor([], dtype=cfg.compute_dtype).element_size()
+    cross_kv = [f"cross_layers.c{i}.w{kv}" for i in range(len(cfg.block_pattern)) for kv in "kv"]
+    step = flops = 0
+    for name, t in model.named_parameters():
+        if name == "embed" or name.startswith("enc_"):
+            continue
+        if name in cross_kv:
+            flops += 2 * b * s_enc * t.numel()
+            continue
+        step += t.numel() * t.element_size()
+        if t.dim() > 1 and not name.endswith(("ln", "norm")):   # stacked norms: (P, d)
+            flops += 2 * b * (1 if name == "lm_head" else s) * t.numel()
+    kv_row = cfg.n_kv_heads * cfg.d_head * es
+    step += 2 * cfg.n_attn_layers * b * (s + (s_enc if cfg.is_enc_dec else 0)) * kv_row
+    pairs = cfg.n_attn_layers * (s * (s + 1) // 2 + (s * s_enc if cfg.is_enc_dec else 0))
+    flops += 4 * b * pairs * cfg.n_heads * cfg.d_head
+    return dict(step_bytes=step, step_bound_ms=step / HBM_BYTES_S * 1e3, prefill_flop=flops,
+                prefill_bound_ms=flops / PEAK_FLOPS[cfg.compute_dtype] * 1e3)
+
+
+def phase_model(model, prompt, *, frames=None, prefix=None) -> int:
+    """A model's own entry points at full width: ``encode`` of stub frames
+    (an encoder-decoder), ``prefill`` of the prompt (behind stub patch
+    embeddings for a vision model) at ``cache_len`` 4096, and DECODE_STEPS
+    decode steps, with the launch counts set to 0 before and read after:
+    K4 carries every self-attention layer a step, and an encoder-decoder's
+    cross-attention too.  Then the encode (if any) and the prefill traced,
+    and two prefills and two decode steps on the same inputs bitwise equal.
+    Returns K4's calls."""
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, encode, prefill
+
+    cfg = model.cfg
+    name = cfg.name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    memory = None if frames is None else encode(model, frames)
+    ensure(memory is None or bool(torch.isfinite(memory).all()), "a non-finite memory")
+    t1 = time.perf_counter()
+
+    def run_prefill():
+        return prefill(model, prompt, prefix_embeds=prefix, memory=memory, cache_len=4096)
+
+    logits, cache = run_prefill()
+    ensure(bool(torch.isfinite(logits).all()), f"{name}: a non-finite prefill logit")
+    t2 = time.perf_counter()
+    s = prompt.shape[1] + (0 if prefix is None else prefix.shape[1])
+    ensure(cache["pos"] == s, ("pos", cache["pos"], s))
+    if memory is not None:
+        want = (cfg.n_periods, prompt.shape[0], frames.shape[1], cfg.n_kv_heads, cfg.d_head)
+        ensure(all(tuple(cache[f"c{kv}0"].shape) == want for kv in "kv"), "cross K/V shape")
+    step_ms, decode = model_decode(model, cache, logits)
+    launches = dict(build.LAUNCHES)
+    calls = cfg.n_attn_layers * (2 if cfg.is_enc_dec else 1) * DECODE_STEPS
+    ensure(launches == dict.fromkeys(launches, 0) | {"flash_decode": calls},
+           (name, launches, calls))
+    peak = torch.cuda.max_memory_allocated()
+    bounds = model_bounds(model, prompt.shape[0], s, 0 if frames is None else frames.shape[1])
+    say(f"[model] {name} (B {prompt.shape[0]}, {s} prompt positions"
+        + ("" if memory is None else f", {frames.shape[1]} encoder frames")
+        + f"): encode {(t1 - t0) * 1e3:.1f} ms, prefill {(t2 - t1) * 1e3:.1f} ms wall; "
+        f"decode step {step_ms:.2f} ms wall untraced at pos {s}-{s + DECODE_STEPS}; "
+        f"flash_decode {calls} calls in {DECODE_STEPS} steps; peak memory {peak / 1e9:.2f} GB")
+    say(f"[model] {name} bounds: a decode step reads {bounds['step_bytes']:,} B, "
+        f"{bounds['step_bound_ms']:.3f} ms (bytes); the prefill does "
+        f"{bounds['prefill_flop'] / 1e12:.1f} TFLOP, {bounds['prefill_bound_ms']:.1f} ms "
+        "(operations)")
+    traces = {"decode step": decode, "prefill": traced(run_prefill, 1)}
+    if memory is not None:
+        traces["encode"] = traced(lambda: encode(model, frames), 1)
+    say_traces(cfg, traces)
+    say("[model] " + json.dumps(dict(model=name, encode_ms=(t1 - t0) * 1e3,
+                                     prefill_ms=(t2 - t1) * 1e3, decode_step_ms=step_ms,
+                                     peak_gb=peak / 1e9, flash_decode_calls=calls,
+                                     bounds=bounds, traces=traces)))
+    del cache
+    first, second = run_prefill(), run_prefill()
+    ensure(torch.equal(first[0], second[0])
+           and all(torch.equal(first[1][k], second[1][k]) for k in first[1] if k != "pos"),
+           f"{name}: two prefills differ")
+    del second
+    tok = torch.argmax(first[0][:, -1], dim=-1)[:, None]
+    steps = [decode_step(model, tok, {k: v if k == "pos" else v.clone()
+                                      for k, v in first[1].items()}) for _ in range(2)]
+    (l1, c1), (l2, c2) = steps
+    ensure(torch.equal(l1, l2) and all(torch.equal(c1[k], c2[k]) for k in c1 if k != "pos"),
+           f"{name}: two decode steps differ")
+    say(f"[model] {name}: two prefills and two decode steps on the same inputs: logits and "
+        "caches bitwise equal")
+    return calls
+
+
+def phase_encdec() -> int:
+    """8d: seamless-m4t-medium at full width, nothing cut: its entry points
+    on 4 x 2048 stub frames and 4 x 256 decoder tokens."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, init_random_
+
+    cfg = get_spec(SEAMLESS).model
+    model = init_random_(Model(cfg, device="cuda"), 0)
+    n = sum(p.numel() for p in model.parameters())
+    say(f"[model] {SEAMLESS}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"{n:,} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    frames = torch.randn((MODEL_BATCH, ENC_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.compute_dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (MODEL_BATCH, DEC_TOKENS), generator=gen,
+                           device="cuda")
+    return phase_model(model, prompt, frames=frames)
+
+
+def phase_vision() -> tuple[dict, int]:
+    """8e: internvl2-76b at full width with INTERNVL2_LAYERS of its 80
+    layers: (a) the cluster serves 4 requests of 2048 tokens, text only, as
+    the JAX cluster does; (b) on its weights, the entry points on 4 x (256
+    stub patch embeddings + 2048 tokens).  Returns (the serve's launch
+    counts, K4's calls of (b))."""
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.serve import weight_bytes
+
+    full = get_spec(INTERNVL2).model
+    cfg = dataclasses.replace(full, n_layers=INTERNVL2_LAYERS)
+    say(f"[serve] {INTERNVL2}: {cfg.n_layers} of its {full.n_layers} layers; the published "
+        f"depth's {weight_bytes(full):,} B of bf16 weights do not fit one "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB card, "
+        f"{cfg.n_layers} layers take {weight_bytes(cfg):,} B")
+    launches, cluster, _ = phase_serve(cfg, 4)
+    model = cluster.model
+    del cluster
+    free()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prefix = torch.randn((MODEL_BATCH, cfg.n_prefix_embeds, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.compute_dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (MODEL_BATCH, VISION_TOKENS), generator=gen,
+                           device="cuda")
+    return launches, phase_model(model, prompt, prefix=prefix)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1550,8 +1862,9 @@ def main(argv=None) -> int:
     check_rwkv_scan(rows)
     lap("kernels")
     for arch in ("qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m", "arctic-480b",
-                 *DENSE_SERVES, JAMBA):
+                 *DENSE_SERVES, JAMBA, INTERNVL2):
         phase_match(arch)
+    match_encdec()
     lap("match")
     launches, cluster, prompts = phase_serve(full_config("qwen3-14b"))
     phase_trace(cluster, prompts)
@@ -1586,6 +1899,15 @@ def main(argv=None) -> int:
         for k in ("kv_pack", "kv_unpack", "flash_decode"):
             launches[k] += more[k]
         lap(f"serve {arch}")
+    launches["flash_decode"] += phase_encdec()
+    free()
+    lap(f"model {SEAMLESS}")
+    more, calls = phase_vision()
+    free()
+    for k in ("kv_pack", "kv_unpack", "flash_decode"):
+        launches[k] += more[k]
+    launches["flash_decode"] += calls
+    lap(f"serve and model {INTERNVL2}")
     decide, at = phase_decide()
     decision_calls(at)
     lap("decide")

@@ -7,6 +7,7 @@ simulation, or the real-model executable cluster.
     python -m repro_torch.launch.serve --real --arch qwen3-14b --requests 8
     python -m repro_torch.launch.serve --real --arch qwen3-14b --width full
     python -m repro_torch.launch.serve --real --arch jamba-v0.1-52b --device cpu
+    python -m repro_torch.launch.serve --real --arch internvl2-76b --device cpu
 
 Without ``--real`` it runs ``run_sim`` on the 64-GPU default cluster with
 the ``--arch`` KV-size model (default llama3-70b, the paper's model, as in
@@ -21,8 +22,11 @@ With ``--real``, ``--width smoke`` (the default) serves the smoke config in
 f32 with the JAX launcher's workload; ``--width full`` serves the full-width
 config in its bf16 compute dtype with 2048-token prompts, the even ones
 sharing a 1024-token prefix, and refuses a config whose weights do not fit
-the device's memory (llama3-70b's ~141 GB, or jamba-v0.1-52b's ~103 GB, on
-one 80 GB card).
+the device's memory (llama3-70b's or internvl2-76b's ~141 GB, or
+jamba-v0.1-52b's ~103 GB, on one 80 GB card).  internvl2-76b is served text
+only, as the JAX cluster serves it; seamless-m4t-medium, an
+encoder-decoder, is refused by the cluster (ROADMAP §3 item 7) and runs
+only through the model's ``encode``, ``prefill`` and ``decode_step``.
 """
 
 from __future__ import annotations

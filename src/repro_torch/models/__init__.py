@@ -1,11 +1,14 @@
-"""The port's models (dense, MoE, RWKV-6 and the Mamba hybrid): config,
-parameters, prefill, decode."""
+"""The port's models (dense, MoE, RWKV-6, the Mamba hybrid, the
+encoder-decoder and the vision prefix): config, parameters, encode,
+prefill, decode."""
 
 from .convert import params_from_jax
 from .model import (
     Model,
     ModelConfig,
     decode_step,
+    encode,
+    forward_logits,
     init_random_,
     make_decode_cache,
     param_specs,
@@ -28,7 +31,8 @@ from .rwkv import (
 )
 from .ssm import mamba_decode_step, mamba_forward, mamba_param_specs
 
-__all__ = ["Model", "ModelConfig", "MoEConfig", "decode_step", "init_random_",
+__all__ = ["Model", "ModelConfig", "MoEConfig", "decode_step", "encode",
+           "forward_logits", "init_random_",
            "make_decode_cache", "mamba_decode_step", "mamba_forward",
            "mamba_param_specs", "moe_ffn", "moe_param_specs", "moe_residual_param_specs",
            "moe_with_residual", "param_specs", "params_from_jax", "prefill",

@@ -5,7 +5,10 @@ leaf); the port only ever sees NumPy.  The tree keeps the JAX layout:
 ``{"embed", "out_norm", "lm_head", "layers": {"b0": {...}, "f0": {...}, ...}}``
 with a ``b{i}`` and, where the position has an FFN, an ``f{i}`` for each
 position ``i`` of the period (no ``f{i}`` for RWKV; a MoE nests its experts
-under ``f{i}.moe``), every leaf stacked over periods.
+under ``f{i}.moe``), every leaf stacked over periods.  An encoder-decoder's
+tree adds ``enc_layers`` ({"b0", "f0"}, stacked over the encoder's
+periods), ``enc_norm`` and ``cross_layers`` ({"c{i}"} for each attention
+position, stacked over the decoder's periods).
 """
 
 from __future__ import annotations

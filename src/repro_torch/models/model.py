@@ -34,9 +34,18 @@ router included).  The blocks up-cast what JAX up-casts, where it is used:
 RWKV's ``bonus_u`` and decay exponent, Mamba's ``a_log``, the router.
 ``out_norm`` is 1-D and stays f32, as in JAX.
 
-Not ported (ROADMAP §1 item 6): cross-attention and the encoder-decoder,
-the vision prefix (the port's config has no field for either), and
-attention with H % KV != 0, which raises ``NotImplementedError``.
+An encoder-decoder (``n_enc_layers`` > 0, seamless-m4t-medium) adds an
+encoder of ``n_enc_layers`` periods of bidirectional attention (with RoPE)
+and a dense FFN (``enc_layers.b0.*``, ``enc_layers.f0.*``), its final norm
+``enc_norm``, and a cross-attention block ``cross_layers.c{i}.*`` (stacked
+over the decoder's periods) after the self-attention of each attention
+position.  :func:`encode` maps stub frame embeddings to the memory;
+:func:`prefill` projects it once to the cross K/V ``ck{i}``/``cv{i}`` (P,
+B, S_enc, KV, dh) and keeps it as ``cross_memory``; each decode step
+attends to ``ck{i}``/``cv{i}`` whole.  A vision model (``frontend`` "vision",
+internvl2-76b) takes ``n_prefix_embeds`` stub patch embeddings in front of
+the tokens.  Attention with H % KV != 0 runs the head-expanded paths of
+``attention.py``; its decode pads the query heads for K4.
 """
 
 from __future__ import annotations
@@ -46,9 +55,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..kernels import ops
 from ..kernels.build import resolve_device
-from .attention import chunked_causal_attention
+from .attention import chunked_causal_attention, cross_attention, kernel_decode_attention
 from .common import InitSpec, rms_norm, rope_tables, rotate, swiglu
 from .moe import MoEConfig, moe_ffn, moe_param_specs, moe_residual_param_specs, moe_with_residual
 from .rwkv import (
@@ -79,6 +87,9 @@ class ModelConfig:
     ffn_pattern: tuple[str, ...] = ("dense",)
     qk_norm: bool = False
     moe: MoEConfig | None = None
+    n_enc_layers: int = 0              # > 0: an encoder-decoder
+    frontend: str | None = None        # None, "vision" or "audio" (stubs)
+    n_prefix_embeds: int = 0           # vision: stub patch embeddings a sample
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     attn_chunk: int = 1024
@@ -93,6 +104,10 @@ class ModelConfig:
         return self.n_layers // len(self.block_pattern)
 
     @property
+    def is_enc_dec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    @property
     def is_attention_free(self) -> bool:
         return all(b != "attn" for b in self.block_pattern)
 
@@ -103,14 +118,10 @@ class ModelConfig:
 
 def _positions(cfg: ModelConfig):
     """(i, block, ffn, has_ffn) for each position of the period; raises on
-    a kind JAX does not build, and on what the port does not run."""
+    a kind JAX does not build."""
     for blk, ffn in zip(cfg.block_pattern, cfg.ffn_pattern):
         if blk not in BLOCKS or ffn not in FFNS:
             raise ValueError(f"{cfg.name}: block {blk!r} / FFN {ffn!r}")
-    if not cfg.is_attention_free and cfg.n_heads % cfg.n_kv_heads:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads; the "
-            "head-expanded attention for H % KV != 0 is queued in ROADMAP §1 item 6")
     return [(i, blk, ffn, blk != "rwkv" and ffn != "none")
             for i, (blk, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern))]
 
@@ -144,8 +155,15 @@ def _ffn_specs(cfg: ModelConfig, kind: str) -> dict[str, InitSpec]:
     return {"ln": InitSpec((d,), kind="ones"), **ffn}
 
 
+def _stack(tree: str, period: dict[str, InitSpec], n: int) -> dict[str, InitSpec]:
+    """``period``'s specs under ``tree``, each shape prefixed by ``n`` periods."""
+    return {f"{tree}.{name}": InitSpec((n, *s.shape), s.scale, s.kind)
+            for name, s in period.items()}
+
+
 def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
-    """Flat ``name -> InitSpec``; per-layer shapes carry the period axis."""
+    """Flat ``name -> InitSpec``; per-layer shapes carry the period axis
+    (the encoder's ``enc_layers`` that of its ``n_enc_layers`` periods)."""
     p = cfg.n_periods
     specs = {
         "embed": InitSpec((cfg.vocab_size, cfg.d_model), scale=0.01),
@@ -156,9 +174,19 @@ def param_specs(cfg: ModelConfig) -> dict[str, InitSpec]:
         period = {f"b{i}.{k}": s for k, s in _block_specs(cfg, blk).items()}
         if has_ffn:
             period.update({f"f{i}.{k}": s for k, s in _ffn_specs(cfg, ffn).items()})
-        specs.update({f"layers.{name}": InitSpec((p, *s.shape), s.scale, s.kind)
-                      for name, s in period.items()})
+        specs.update(_stack("layers", period, p))
+    if cfg.is_enc_dec:
+        enc = {f"b0.{k}": s for k, s in _block_specs(cfg, "attn").items()}
+        enc.update({f"f0.{k}": s for k, s in _ffn_specs(cfg, "dense").items()})
+        specs.update(_stack("enc_layers", enc, cfg.n_enc_layers))
+        specs["enc_norm"] = InitSpec((cfg.d_model,), kind="ones")
+        cross = {f"c{i}.{k}": s for i, blk, _, _ in _positions(cfg) if blk == "attn"
+                 for k, s in _block_specs(cfg, "attn").items()}
+        specs.update(_stack("cross_layers", cross, p))
     return specs
+
+
+STACKED = ("layers", "enc_layers", "cross_layers")
 
 
 def storage_dtype(cfg: ModelConfig, spec: InitSpec) -> torch.dtype:
@@ -170,16 +198,19 @@ class Model(nn.Module):
     """Parameters of one model, named as in the JAX parameter tree
     (``embed``, ``out_norm``, ``lm_head``, ``layers.b{i}.*`` and, for a
     position with an FFN, ``layers.f{i}.*``, the MoE's under
-    ``layers.f{i}.moe.*``); a subtree is a nested ``ParameterDict``.
-    Allocated uninitialised; fill with :func:`init_random_` or
-    ``convert.params_from_jax``."""
+    ``layers.f{i}.moe.*``; an encoder-decoder's ``enc_layers.{b0,f0}.*``,
+    ``enc_norm`` and ``cross_layers.c{i}.*``); a subtree is a nested
+    ``ParameterDict``.  Allocated uninitialised; fill with
+    :func:`init_random_` or ``convert.params_from_jax``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
         self.specs = param_specs(cfg)
         dev = resolve_device(device)
-        self.layers = nn.ModuleDict()
+        for tree in STACKED:
+            if any(name.startswith(tree + ".") for name in self.specs):
+                setattr(self, tree, nn.ModuleDict())
         for name, spec in self.specs.items():
             t = nn.Parameter(torch.empty(spec.shape, dtype=storage_dtype(cfg, spec),
                                          device=dev), requires_grad=False)
@@ -187,7 +218,7 @@ class Model(nn.Module):
             if len(parts) == 1:
                 setattr(self, name, t)
                 continue
-            node = self.layers
+            node = getattr(self, parts[0])
             for part in parts[1:-1]:
                 if part not in node:
                     node[part] = nn.ParameterDict()
@@ -215,19 +246,23 @@ def init_random_(model: Model, seed: int) -> Model:
         elif spec.kind == "zeros":
             t.zero_()
         else:
-            slices = t if name.startswith("layers.") else (t,)
+            slices = t if name.split(".")[0] in STACKED else (t,)
             for sl in slices:
                 sl.copy_(torch.randn(sl.shape, generator=gen, device=dev,
                                      dtype=torch.float32).mul_(spec.scale))
     return model
 
 
-def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
+def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None, *,
+                      enc_len: int | None = 0) -> dict:
     """Zeroed decode cache and ``pos`` (a host int): for each position ``i``
-    of the period, attention ``k{i}``/``v{i}`` (P, B, cache_len, KV, dh);
-    Mamba ``ssm{i}`` (P, B, d_inner, 16) f32 and ``conv{i}`` (P, B, 3,
-    d_inner); RWKV ``wkv{i}`` (P, B, H, 64, 64) f32 and ``sa{i}``/``sc{i}``
-    (P, B, d).  Only the attention leaves depend on ``cache_len``."""
+    of the period, attention ``k{i}``/``v{i}`` (P, B, cache_len, KV, dh)
+    and, for an encoder-decoder, the cross K/V ``ck{i}``/``cv{i}`` (P, B,
+    enc_len, KV, dh); Mamba ``ssm{i}`` (P, B, d_inner, 16) f32 and
+    ``conv{i}`` (P, B, 3, d_inner); RWKV ``wkv{i}`` (P, B, H, 64, 64) f32
+    and ``sa{i}``/``sc{i}`` (P, B, d).  Only the attention leaves depend on
+    ``cache_len`` and ``enc_len``; the leaves are JAX's.  ``enc_len=None``
+    leaves the cross K/V out, as JAX's prefill does without a memory."""
     dev = resolve_device(device)
     p, cd = cfg.n_periods, cfg.compute_dtype
 
@@ -239,6 +274,9 @@ def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None)
         if blk == "attn":
             cache[f"k{i}"] = zeros(cache_len, cfg.n_kv_heads, cfg.d_head)
             cache[f"v{i}"] = zeros(cache_len, cfg.n_kv_heads, cfg.d_head)
+            if cfg.is_enc_dec and enc_len is not None:
+                cache[f"ck{i}"] = zeros(enc_len, cfg.n_kv_heads, cfg.d_head)
+                cache[f"cv{i}"] = zeros(enc_len, cfg.n_kv_heads, cfg.d_head)
         elif blk == "mamba":
             cache[f"ssm{i}"] = zeros(2 * cfg.d_model, D_STATE, dtype=torch.float32)
             cache[f"conv{i}"] = zeros(D_CONV - 1, 2 * cfg.d_model)
@@ -285,6 +323,21 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
     return rotate(q, cos, sin), rotate(k, cos, sin), v
 
 
+def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, rope, causal: bool):
+    """The attention block over a sequence: (its output, k, v)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, *rope)
+    att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal)
+    return att.reshape(b, s, -1) @ p["wo"], k, v
+
+
+def _cross_q(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The cross block's queries (B, S, H, dh): no RoPE, no q norm."""
+    b, s, _ = x.shape
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    return (xn @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
+
+
 def _ffn(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     """The position's FFN on the normed x; serving drops the MoE aux loss."""
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -303,51 +356,122 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, model.out_norm, model.cfg.norm_eps) @ model.lm_head
 
 
-@torch.no_grad()
-def prefill(model: Model, tokens: torch.Tensor, cache_len: int | None = None):
-    """Run the prompt (B, S); return (last-token logits (B, 1, V), cache).
-
-    The attention K/V leaves are allocated at ``cache_len`` (>= S) and zero
-    past the prompt, the JAX version's padding, so decode can append in
-    place.  Mamba and RWKV leaves hold each layer's final state."""
-    cfg = model.cfg
-    b, s = tokens.shape
-    cache = make_decode_cache(cfg, b, cache_len or s, model.device)
-    rope = _rope(cfg, torch.arange(s, device=model.device)[None, :])
+def _embed_inputs(model: Model, tokens: torch.Tensor, prefix_embeds) -> torch.Tensor:
+    """Token embeddings, behind the stub prefix embeddings (B, n, d) if any."""
     x = model.embed[tokens]
-    for per in range(cfg.n_periods):
-        x = _period_seq(model, per, x, cache, rope)
+    if prefix_embeds is None:
+        return x
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+
+def _cross_kv(model: Model, memory) -> dict:
+    """``{i: (k, v)}`` for each attention position ``i`` of an
+    encoder-decoder: the encoder memory (B, S_enc, d) projected once by
+    every period's ``cross_layers.c{i}`` to (P, B, S_enc, KV, dh).  Empty
+    without a memory or an encoder."""
+    cfg = model.cfg
+    if not cfg.is_enc_dec or memory is None:
+        return {}
+    b, se, _ = memory.shape
+    mem = memory.to(cfg.compute_dtype)[None]
+    shape = (cfg.n_periods, b, se, cfg.n_kv_heads, cfg.d_head)
+    return {int(name[1:]): ((mem @ p["wk"][:, None]).reshape(shape),
+                            (mem @ p["wv"][:, None]).reshape(shape))
+            for name, p in model.cross_layers.items()}
+
+
+def _backbone(model: Model, x: torch.Tensor, cache: dict | None, cross: dict,
+              causal: bool = True) -> torch.Tensor:
+    rope = _rope(model.cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    for per in range(model.cfg.n_periods):
+        x = _period_seq(model, per, x, cache, rope, cross, causal)
+    return x
+
+
+@torch.no_grad()
+def encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over stub frame embeddings (B, T, d): ``n_enc_layers``
+    periods of bidirectional attention with RoPE and a dense FFN, then
+    ``enc_norm``; returns the memory (B, T, d) in ``compute_dtype``."""
+    cfg = model.cfg
+    x = frames.to(cfg.compute_dtype)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    for per in range(cfg.n_enc_layers):
+        x = x + _attn_seq(cfg, _slice(model.enc_layers["b0"], per), x, rope, False)[0]
+        x = x + _ffn(cfg, "dense", _slice(model.enc_layers["f0"], per), x)
+    return rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+@torch.no_grad()
+def forward_logits(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
+                   causal: bool = True) -> torch.Tensor:
+    """Logits (B, n_prefix + S, V) of every position; JAX's ``forward_logits``
+    without its MoE aux loss (a training term)."""
+    x = _embed_inputs(model, tokens, prefix_embeds)
+    return _logits(model, _backbone(model, x, None, _cross_kv(model, memory), causal))
+
+
+@torch.no_grad()
+def prefill(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
+            cache_len: int | None = None):
+    """Run the prompt (B, S), behind ``prefix_embeds`` (B, n, d) if given;
+    return (last-token logits (B, 1, V), cache) with ``pos`` n + S.
+
+    The attention K/V leaves are allocated at ``cache_len`` (>= n + S) and
+    zero past the prompt, the JAX version's padding, so decode can append in
+    place.  Mamba and RWKV leaves hold each layer's final state.  An
+    encoder-decoder given its ``memory`` (B, S_enc, d) also caches the cross
+    K/V ``ck{i}``/``cv{i}`` and the memory as ``cross_memory``."""
+    cfg = model.cfg
+    x = _embed_inputs(model, tokens, prefix_embeds)
+    b, s, _ = x.shape
+    cache = make_decode_cache(cfg, b, cache_len or s, model.device, enc_len=None)
+    cross = _cross_kv(model, memory)
+    for i, (k, v) in cross.items():
+        cache[f"ck{i}"], cache[f"cv{i}"] = k, v
+    if cross:
+        cache["cross_memory"] = memory
+    x = _backbone(model, x, cache, cross)
     cache["pos"] = s
     return _logits(model, x[:, -1:]), cache
 
 
-def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict, rope) -> torch.Tensor:
-    """Period ``per`` over the prompt; writes its slice of every cache leaf.
-    RWKV's time mix runs its recurrence through ``ops.rwkv_scan``."""
+def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rope,
+                cross: dict, causal: bool) -> torch.Tensor:
+    """Period ``per`` over the sequence; writes its slice of every cache leaf
+    (none without a cache).  An attention position with cross K/V runs the
+    cross block after its self-attention.  RWKV's time mix runs its
+    recurrence through ``ops.rwkv_scan``."""
     cfg = model.cfg
     eps = cfg.norm_eps
     b, s, _ = x.shape
     for i, blk, ffn, has_ffn in _positions(cfg):
         p = _slice(model.layers[f"b{i}"], per)
         if blk == "attn":
-            q, k, v = _qkv(cfg, p, x, *rope)
-            att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
-            x = x + att.reshape(b, s, -1) @ p["wo"]
-            cache[f"k{i}"][per, :, :s] = k
-            cache[f"v{i}"][per, :, :s] = v
+            out, k, v = _attn_seq(cfg, p, x, rope, causal)
+            x = x + out
+            if cache is not None:
+                cache[f"k{i}"][per, :, :s] = k
+                cache[f"v{i}"][per, :, :s] = v
+            if i in cross:
+                cp = _slice(model.cross_layers[f"c{i}"], per)
+                att = cross_attention(_cross_q(cfg, cp, x), cross[i][0][per], cross[i][1][per])
+                x = x + att.reshape(b, s, -1) @ cp["wo"]
         elif blk == "mamba":
             out, state = mamba_forward(p, rms_norm(x, p["ln"], eps))
             x = x + out
-            cache[f"ssm{i}"][per] = state["ssm"]
-            cache[f"conv{i}"][per] = state["conv"]
+            if cache is not None:
+                cache[f"ssm{i}"][per] = state["ssm"]
+                cache[f"conv{i}"][per] = state["conv"]
         else:
             out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps))
             x = x + out
             out, last2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], eps))
             x = x + out
-            cache[f"wkv{i}"][per] = wkv
-            cache[f"sa{i}"][per] = last
-            cache[f"sc{i}"][per] = last2
+            if cache is not None:
+                cache[f"wkv{i}"][per] = wkv
+                cache[f"sa{i}"][per] = last
+                cache[f"sc{i}"][per] = last2
         if has_ffn:
             x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
     return x
@@ -360,9 +484,11 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict):
 
     The cache is updated in place (JAX returns an updated copy; writing in
     place saves a cache copy per layer).  Attention: the new K/V rows land
-    at the scalar ``pos`` and attention runs through ``ops.flash_decode``
-    over the first pos+1 entries.  Mamba and RWKV: each layer's states are
-    overwritten by the step's (plain PyTorch, as in JAX)."""
+    at the scalar ``pos`` and attention runs through
+    ``attention.kernel_decode_attention`` (K4) over the first pos+1
+    entries; an encoder-decoder's cross block then attends, through K4
+    too, to the whole ``ck{i}``/``cv{i}``.  Mamba and RWKV: each layer's
+    states are overwritten by the step's (plain PyTorch, as in JAX)."""
     cfg = model.cfg
     pos = int(cache["pos"])
     rope = _rope(cfg, torch.full((1, 1), pos, device=model.device))
@@ -385,8 +511,14 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos: in
             k_cache, v_cache = cache[f"k{i}"][per], cache[f"v{i}"][per]
             k_cache[:, pos] = k[:, 0]
             v_cache[:, pos] = v[:, 0]
-            att = ops.flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
+            att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
             x = x + att.reshape(b, 1, -1) @ p["wo"]
+            if cfg.is_enc_dec:
+                cp = _slice(model.cross_layers[f"c{i}"], per)
+                ck, cv = cache[f"ck{i}"][per], cache[f"cv{i}"][per]
+                att = kernel_decode_attention(_cross_q(cfg, cp, x)[:, 0].contiguous(), ck, cv,
+                                              ck.shape[1])
+                x = x + att.reshape(b, 1, -1) @ cp["wo"]
         elif blk == "mamba":
             ssm, conv = cache[f"ssm{i}"][per], cache[f"conv{i}"][per]
             out, state = mamba_decode_step(p, rms_norm(x, p["ln"], eps),

@@ -54,13 +54,24 @@ class DisaggregatedCluster:
     ``params`` takes a :class:`Model` (for instance weights converted with
     ``models.convert.params_from_jax``); when it is ``None`` the weights are
     drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
-    ``device=None`` means the card; without one the constructor raises."""
+    ``device=None`` means the card; without one the constructor raises.
+
+    It serves decoder-only models; a vision model text only, as the JAX
+    cluster does (its prefill engine passes no prefix embeddings).  An
+    encoder-decoder is refused before anything is allocated: the JAX
+    cluster's prefill caches no cross K/V, so its decode engine fails at
+    ``admit`` (ROADMAP §3 item 7)."""
 
     def __init__(self, cfg: ModelConfig, *, scheduler: str = "netkv-full",
                  n_prefill: int = 2, n_decode: int = 4, n_slots: int = 4,
                  cache_len: int = 256, seed: int = 0,
                  tree: FatTree | None = None, background: float = 0.2,
                  params: Model | None = None, device=None):
+        if cfg.is_enc_dec:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: the cluster's prefill engine takes no "
+                "encoder memory, so the JAX cluster cannot serve it either (ROADMAP §3 "
+                "item 7); run it through models.encode, prefill(memory=...) and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cache_len = cache_len

@@ -89,6 +89,9 @@ def test_flash_decode_matches_plain(cuda, dtype, b, h, kv, dh, s):
     (4, 48, 8, 128, 4096),  # internlm2-20b: G 6
     (4, 9, 3, 64, 4096),    # smollm-135m: G 3, dh 64
     (4, 32, 8, 128, 4096),  # jamba-v0.1-52b: G 4
+    (4, 16, 16, 64, 4096),  # seamless-m4t-medium self-attention: G 1, dh 64
+    (4, 16, 16, 64, 2048),  # seamless-m4t-medium cross-attention: pos S_enc
+    (4, 64, 8, 128, 4096),  # internvl2-76b: G 8
 ])
 def test_flash_decode_split_boundaries(cuda, dtype, b, h, kv, dh, s):
     """K4 where the split shows: one range (pos under one range), pos on a
@@ -132,6 +135,95 @@ def test_flash_decode_rejects(cuda):
         flash_decode(torch.zeros((1, 18, 64), device=cuda), k, k, 1)
     with pytest.raises(TypeError):
         flash_decode(q, k.bfloat16(), k.bfloat16(), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,kv,dh", [(6, 4, 64), (3, 2, 128), (5, 3, 64), (9, 2, 64)])
+def test_padded_heads_match_plain(cuda, dtype, h, kv, dh):
+    """H % KV != 0: ``kernel_decode_attention`` pads q to KV * ceil(H/KV)
+    heads for K4 (one launch a call) and keeps the first H; held to the
+    head-expanded plain reference on the same inputs."""
+    from repro_torch.models.attention import decode_attention, kernel_decode_attention
+
+    q, k, v = _fd_inputs(cuda, dtype, 4, h, kv, dh, 1024, h * kv)
+    rtol, atol = FD_TOL[dtype]
+    for pos in (1, 300, 1024):
+        before = build.LAUNCHES["flash_decode"]
+        out = kernel_decode_attention(q, k, v, pos).float()
+        assert build.LAUNCHES["flash_decode"] == before + 1
+        want = ref.flash_decode_ref(
+            torch.cat([q, q.new_zeros((4, kv * -(-h // kv) - h, dh))], dim=1), k, v,
+            pos)[:, :h].float()
+        excess = ((out - want).abs() - rtol * want.abs() - atol).max().item()
+        assert excess <= 0, (pos, excess)
+        if dtype == torch.float32:
+            plain = decode_attention(q[:, None], k, v, pos)[:, 0]
+            torch.testing.assert_close(out, plain, atol=2e-5, rtol=0)
+
+
+def _smoke_pair(cuda, arch, **change):
+    """The smoke model of ``arch`` in f32 (``change`` applied to its config)
+    on the CPU and the same weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, init_random_
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products on both sides
+    cfg = dataclasses.replace(get_spec(arch).smoke, compute_dtype=torch.float32, **change)
+    cpu = init_random_(Model(cfg, device="cpu"), 0)
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu, gpu
+
+
+def test_encoder_decoder_on_card_matches_cpu(cuda):
+    """The seamless smoke model: encode, prefill with the memory and four
+    decode steps on the card (self- and cross-attention through K4, two
+    launches a layer a step) against the plain path on the CPU."""
+    from repro_torch.models import decode_step, encode, prefill
+
+    cfg, cpu, gpu = _smoke_pair(cuda, "seamless-m4t-medium")
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20)))
+    mc, mg = encode(cpu, frames), encode(gpu, frames.to(cuda))
+    torch.testing.assert_close(mg.cpu(), mc, atol=1e-4, rtol=1e-4)
+    lc, cc = prefill(cpu, toks, memory=mc, cache_len=32)
+    lg, cg = prefill(gpu, toks.to(cuda), memory=mg, cache_len=32)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    before = build.LAUNCHES["flash_decode"]
+    for _ in range(4):
+        tok = torch.argmax(lc[:, -1], dim=-1)[:, None]
+        lc, cc = decode_step(cpu, tok, cc)
+        lg, cg = decode_step(gpu, tok.to(cuda), cg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert build.LAUNCHES["flash_decode"] == before + 4 * 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("heads", [{}, {"n_heads": 6, "n_kv_heads": 4}], ids=["smoke", "h6kv4"])
+def test_vision_prefix_on_card_matches_cpu(cuda, heads):
+    """The internvl2 smoke model (and with 6 heads over 4 KV heads):
+    prefill behind stub patch embeddings and four decode steps on the card
+    against the CPU."""
+    from repro_torch.models import decode_step, prefill
+
+    cfg, cpu, gpu = _smoke_pair(cuda, "internvl2-76b", **heads)
+    rng = np.random.default_rng(2)
+    pe = torch.from_numpy(rng.standard_normal((2, cfg.n_prefix_embeds, cfg.d_model))
+                          .astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20)))
+    lc, cc = prefill(cpu, toks, prefix_embeds=pe, cache_len=48)
+    lg, cg = prefill(gpu, toks.to(cuda), prefix_embeds=pe.to(cuda), cache_len=48)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    before = build.LAUNCHES["flash_decode"]
+    for _ in range(4):
+        tok = torch.argmax(lc[:, -1], dim=-1)[:, None]
+        lc, cc = decode_step(cpu, tok, cc)
+        lg, cg = decode_step(gpu, tok.to(cuda), cg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert build.LAUNCHES["flash_decode"] == before + 4 * cfg.n_layers
+    assert cg["pos"] == cfg.n_prefix_embeds + 24
 
 
 # chip_smoke.py's phase-3 shapes of K1 and a few cohorts.

@@ -44,8 +44,8 @@ def _np(x):
 @pytest.mark.parametrize("which", ["model", "smoke"])
 def test_config_equals_jax(which):
     """Every field of the port's ModelConfig equals the JAX one (dtypes by
-    name; ``moe`` None on both sides); the JAX fields the port lacks are at
-    their dense defaults, and ``remat`` (a training option) is left out."""
+    name; ``moe`` None on both sides); the encoder and front-end fields are
+    at their defaults, and ``remat`` (a training option) is left out."""
     j = getattr(jax_spec(ARCH), which)
     t = getattr(get_spec(ARCH), which)
     jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -55,9 +55,9 @@ def test_config_equals_jax(which):
         else:
             assert value == jf[name], name
     extra = set(jf) - set(tf)
-    assert extra == {"n_enc_layers", "frontend", "n_prefix_embeds", "remat"}
+    assert extra == {"remat"}
     assert t.moe is None and j.moe is None
-    assert (j.n_enc_layers, j.frontend, j.n_prefix_embeds) == (0, None, 0)
+    assert (t.n_enc_layers, t.frontend, t.n_prefix_embeds) == (0, None, 0)
     assert get_spec(ARCH).source == jax_spec(ARCH).source == "[arXiv:2407.21783; hf]"
 
 

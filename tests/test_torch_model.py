@@ -19,6 +19,7 @@ from repro_torch.configs import get_spec
 from repro_torch.models import (
     Model,
     decode_step,
+    init_random_,
     make_decode_cache,
     params_from_jax,
     prefill,
@@ -144,18 +145,23 @@ class TestModel:
         assert tuple(cache["k0"].shape) == (4, 3, 32, 2, 16) and cache["pos"] == 0
 
     def test_unported_block_kinds_raise(self, cfgs):
-        """Mamba blocks build now (tests/test_torch_ssm.py holds them to
-        JAX); what raises is attention whose heads do not group over the KV
-        heads, before anything is allocated, and the encoder-decoder
-        architecture, which has no config in the port."""
+        """Every block kind and head ratio JAX builds, the port builds:
+        Mamba blocks (tests/test_torch_ssm.py holds them to JAX), attention
+        whose heads do not group over the KV heads (the head-expanded path,
+        held to JAX in tests/test_torch_encdec.py and test_torch_vision.py),
+        and the encoder-decoder, whose config the port registers."""
         _, tcfg = cfgs
         mamba = dataclasses.replace(tcfg, block_pattern=("mamba",), ffn_pattern=("none",))
         assert "b0.in_proj" in dict(Model(mamba, device="cpu").layers.named_parameters())
         ragged = dataclasses.replace(tcfg, n_kv_heads=3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(ragged, device="cpu")
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_spec("seamless-m4t-medium")
+        model = init_random_(Model(ragged, device="cpu"), 0)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 9)))
+        logits, cache = prefill(model, toks, cache_len=16)
+        logits, cache = decode_step(model, toks[:, :1], cache)
+        assert bool(torch.isfinite(logits).all()) and cache["pos"] == 10
+        assert tuple(cache["k0"].shape) == (4, 2, 16, 3, 16)
+        spec = get_spec("seamless-m4t-medium")
+        assert spec.model.is_enc_dec and spec.arch_id == "seamless-m4t-medium"
 
     def test_random_init_is_seeded(self, cfgs):
         from repro_torch.models import init_random_

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import (
     Model,
     decode_step,
+    init_random_,
     make_decode_cache,
     params_from_jax,
     prefill,
@@ -238,10 +239,10 @@ class TestModel:
         assert tuple(cache["sa0"].shape) == tuple(cache["sc0"].shape) == (3, 3, 128)
 
     def test_unported_periods_still_raise(self, cfgs):
-        """The three periods once unported build now, the RWKV position's
-        FFN dropped as JAX drops it; with 3 heads over 2 KV heads, the
-        attention path not ported, the two with an attention position
-        raise and name ROADMAP."""
+        """The three periods once unported build, the RWKV position's FFN
+        dropped as JAX drops it; with 3 heads over 2 KV heads, once
+        unported too, the two with an attention position build and run a
+        prefill and a decode step on the head-expanded path."""
         _, tcfg = cfgs
         for blocks, ffns in ((("mamba",), ("none",)), (("rwkv",), ("dense",)),
                              (("attn", "rwkv"), ("dense", "none"))):
@@ -251,11 +252,11 @@ class TestModel:
             dropped = tuple(f"layers.f{j}." for j, b in enumerate(blocks) if b == "rwkv")
             assert not any(n.startswith(dropped) for n in names)
             bad = dataclasses.replace(cfg, n_heads=3, n_kv_heads=2)
+            model = init_random_(Model(bad, device="cpu"), 0)
             if "attn" in blocks:
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    Model(bad, device="cpu")
-            else:
-                Model(bad, device="cpu")
+                toks = torch.from_numpy(np.arange(10).reshape(2, 5))
+                logits, cache = decode_step(model, toks[:, :1], prefill(model, toks, cache_len=8)[1])
+                assert bool(torch.isfinite(logits).all()) and cache["pos"] == 6
 
     @pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-14b"])
     def test_state_bytes_and_kv_spec_equal_jax(self, arch):

@@ -215,13 +215,21 @@ class TestKernelBackend:
         assert kern.select(RequestInfo(0, 8192, 1e9), 0, cv, view) is None
 
     def test_unported_paths_raise(self):
-        """The encoder-decoder and vision architectures are not ported:
-        asking for one raises and names ROADMAP."""
-        from repro_torch.configs import get_spec as port_spec
+        """The encoder-decoder and vision architectures are ported: both
+        specs resolve to the JAX package's configs; an unknown arch raises."""
+        from repro.configs import get_spec as jax_spec
+        from repro_torch.configs import ALL, get_spec as port_spec
 
         for arch in ("seamless-m4t-medium", "internvl2-76b"):
-            with pytest.raises(KeyError, match="ROADMAP"):
-                port_spec(arch)
+            spec = port_spec(arch)
+            assert spec.arch_id == arch and spec.source == jax_spec(arch).source
+            assert dataclasses.asdict(spec.kv_spec()) == dataclasses.asdict(
+                jax_spec(arch).kv_spec())
+        assert port_spec("seamless-m4t-medium").model.is_enc_dec
+        assert port_spec("internvl2-76b").model.n_prefix_embeds == 256
+        assert len(ALL) == 11
+        with pytest.raises(KeyError, match="unknown arch"):
+            port_spec("no-such-arch")
 
     def test_cohort_and_batch_paths_run(self):
         """The cohort walk and netkv-batch, which raised before the simulator

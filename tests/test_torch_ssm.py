@@ -212,7 +212,7 @@ def setup():
 @pytest.mark.parametrize("which", ["model", "smoke", "16 layers"])
 def test_config_equals_jax(which):
     """Every field of the port's ModelConfig equals the JAX one (``moe``
-    field by field, dtypes by name); the JAX fields the port lacks are at
+    field by field, dtypes by name); the encoder and front-end fields are at
     their defaults, and ``remat`` (a training option) is left out."""
     if which == "16 layers":
         j, t = _cfg16(jax_spec(ARCH)), _cfg16(get_spec(ARCH))
@@ -224,8 +224,8 @@ def test_config_equals_jax(which):
             assert str(value).removeprefix("torch.") == jnp.dtype(jf[name]).name
         else:
             assert value == jf[name], name
-    assert set(jf) - set(tf) == {"n_enc_layers", "frontend", "n_prefix_embeds", "remat"}
-    assert (j.n_enc_layers, j.frontend, j.n_prefix_embeds) == (0, None, 0)
+    assert set(jf) - set(tf) == {"remat"}
+    assert (t.n_enc_layers, t.frontend, t.n_prefix_embeds) == (0, None, 0)
     assert t.n_periods == j.n_periods and t.n_attn_layers == j.n_attn_layers
     assert get_spec(ARCH).source == jax_spec(ARCH).source
 
