@@ -5,6 +5,8 @@
     python3 chip_smoke.py --k1   # K1 and the decision path alone (phases 1, 9
                                  # and profile_k1): to compare two trees in one
                                  # call, run it from a copy of each
+    python3 chip_smoke.py --train   # phases 1-2, K4's checks, the per-slot
+                                    # decode at qwen3-14b's width and phase 12
 
 Phases, in order; every check asserts and any failure exits non-zero:
 
@@ -28,7 +30,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
               self-attention (G 1, dh 64, pos 264) and cross-attention (S
               2048, pos 2048) and internvl2 (G 8, dh 128, pos 2312), each
               timed but phi3's, internlm2's and smollm's; and through the
-              padded-head path (H 6 over KV 4, timed); rwkv_scan also at ragged
+              padded-head path (H 6 over KV 4, timed); with per-row lengths
+              (the per-slot decode) at qwen3-14b's shape, (2056, 1031, 17, 1),
+              rows shorter than a range and on a range's edge, bf16 and f32,
+              equal lengths bitwise the scalar launch (timed beside it);
+              rwkv_scan also at ragged
               T, B 2, dh 16-128 across its column groups and in bf16; both
               deterministic (two calls bitwise equal)
   4. match    the serving path on the card against the same path on the CPU
@@ -40,7 +46,14 @@ Phases, in order; every check asserts and any failure exits non-zero:
               steps: tokens equal, memory and logits within 1e-4
   5. serve    qwen3-14b at full width (bf16, random weights from a seed):
               2 prefill + 4 decode instances, 8 requests of 2048 tokens, 16
-              new tokens each; launch counts of kv_pack/kv_unpack/flash_decode
+              new tokens each; launch counts of kv_pack/kv_unpack/flash_decode;
+              after phase 6, ``decode_step`` with a vector ``pos``: equal
+              entries bitwise the scalar step's logits and cache, ragged
+              entries (2055, 1030, 16, 0): each row's cache changed at its
+              position only, layer 0's new K/V and the longest row's logits
+              bitwise those of the row at its own scalar pos, every row's
+              logits within twice a scalar step's own batch-vs-alone
+              difference of the row alone at batch 1
   6. trace    where the time of that path goes: one decode engine of the
               served cluster with its 4 slots full, decode steps on the host
               clock and under ``torch.profiler`` (device time by kernel class,
@@ -105,8 +118,16 @@ Phases, in order; every check asserts and any failure exits non-zero:
               pad-only paths, both layouts past shared memory), two calls
               bitwise equal, one device op a call in the profiler, and its
               device_time_ms beside the traced device time
- 12. one JSON line ``{"kernels": [...]}``
- 13. last line ``{"ok": true, "device": {...}}``
+ 12. train    (a) one train step of every registered arch's smoke config in
+              f32 on the card against the CPU (loss, grad_norm, parameters);
+              (b) smollm-135m at full width, nothing cut: 20 steps of global
+              batch 8 x 4096, 4 microbatches, AdamW, f32 master, bf16
+              compute, remat, under deterministic algorithms: losses finite
+              and falling, wall ms a step, tokens/s, peak memory, the bound;
+              a checkpoint at step 10 restored and steps 10-20 run again,
+              parameters bitwise equal; one step under ``torch.profiler``
+ 13. one JSON line ``{"kernels": [...]}``
+ 14. last line ``{"ok": true, "device": {...}}``
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it fails.
@@ -114,17 +135,23 @@ device, or without the repository's ``src/`` beside it, it fails.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# Phase 12's restart drill runs under torch.use_deterministic_algorithms,
+# which needs cuBLAS's workspace fixed before CUDA starts (":4096:8", 32 MiB,
+# the size PyTorch gives Hopper by default).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -160,6 +187,10 @@ EXP11 = dict(schedulers=("cla", "netkv-static", "netkv-full"), chunks=(None, 256
              drain=4.0, rps=12.0, background=0.25, dt=0.01)
 # TTFT summaries of the f32 kernel sweep against the f64 sweep, relative.
 SWEEP_RTOL = 0.02
+# A row of a bf16 decode batch against the same row decoded by other means
+# with the same products, x the largest |logit|: a few rounding steps (the
+# CPU tests' bound for a bf16 model).
+BF16_ROW = 2.0 ** -6
 # flash_decode (rtol, atol) by dtype.  Kernel and plain version both sum in
 # f32 and round once to the output dtype, so in bf16 they may differ by one
 # rounding step of the output, at most 2^-7 of its magnitude; a kernel that
@@ -409,6 +440,71 @@ def check_padded_heads(inputs, held) -> dict:
     return t
 
 
+# K4 with per-row lengths at qwen3-14b's decode shape (B 4, H 40, KV 8, dh
+# 128, S 4096): a row past the decode step of a 2048-token prompt, one at
+# half of it, one shorter than a range and one of length 1.
+RAGGED = (2056, 1031, 17, 1)
+
+
+def check_ragged(inputs) -> dict:
+    """K4 with a (B,) vector of lengths (the per-slot decode) against its
+    plain version on the same lengths, in bf16 and f32: ``RAGGED``; rows
+    shorter than one range of the longest row's plan; rows that end on a
+    range's edge and one past it; a row at S; every row at 1.  Two calls
+    bitwise equal; a vector of equal lengths bitwise the scalar launch.
+    Timed at ``RAGGED`` beside the scalar launch at 2056, against its bound
+    (the rows' own keys and values read once) and SDPA with a per-row mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd, ref
+
+    b, h, kv, dh, s = 4, 40, 8, 128, 4096
+    longest = max(RAGGED)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(b, h, kv, dh, s, dtype)
+        r = fd.plan_for(q, k, longest).range_len
+        cases = [RAGGED, (longest, r, r + 1, 2 * r), (longest, r - 1, 1, 2 * r - 1),
+                 (s, s - 1, r, 3), (1, 1, 1, 1)]
+        worst = 0.0
+        for lengths in cases:
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            out = fd.flash_decode(q, k, v, max(lengths), lens)
+            err, excess = flash_decode_error(out, ref.flash_decode_ref(q, k, v, lens))
+            ensure(excess <= 0, f"flash_decode lengths {lengths} {dtype}: max err {err}, "
+                   f"{excess} over (rtol, atol) {FD_TOL[dtype]}")
+            ensure(torch.equal(out, fd.flash_decode(q, k, v, max(lengths), lens)),
+                   f"flash_decode lengths {lengths} {dtype}: two calls differ")
+            worst = max(worst, err)
+        for pos in (1, 17, r, longest, s):
+            lens = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+            ensure(torch.equal(fd.flash_decode(q, k, v, pos, lens), fd.flash_decode(q, k, v, pos)),
+                   f"flash_decode {dtype}: equal lengths {pos} differ from the scalar launch")
+        say(f"[kernels] flash_decode with per-row lengths {dtype}: {cases} (ranges of {r} keys "
+            f"over the longest row), max abs err {worst:.3g}; two calls bitwise equal; equal "
+            "lengths bitwise the scalar launch")
+    q, k, v = inputs(b, h, kv, dh, s, torch.bfloat16)
+    lens = torch.tensor(RAGGED, dtype=torch.int32, device="cuda")
+    es = q.element_size()
+    keys = sum(RAGGED)
+    b_ms, b_by = bound(2 * keys * kv * dh * es + 2 * q.numel() * es + 4 * b,
+                       4.0 * h * keys * dh, q.dtype)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    scalar_ms = device_time_ms(lambda: fd.flash_decode(q, k, v, longest), 100)
+    t = dict(ms=device_time_ms(lambda: fd.flash_decode(q, k, v, longest, lens), 100),
+             scalar_ms=scalar_ms,
+             plain_ms=device_time_ms(lambda: ref.flash_decode_ref(q, k, v, lens), 20),
+             library_ms=device_time_ms(lambda: F.scaled_dot_product_attention(
+                 q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True), 100),
+             bound_ms=b_ms, bound_by=b_by,
+             shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, lengths {list(RAGGED)}")
+    say(f"[kernels] flash_decode with lengths {list(RAGGED)}: {t['ms']:.4f} ms a call (the "
+        f"scalar launch at pos {longest}: {scalar_ms:.4f} ms), SDPA with a per-row mask "
+        f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+    return t
+
+
 def check_flash_decode(rows: dict) -> None:
     from repro_torch.kernels import build, flash_decode as fd, ref
 
@@ -455,6 +551,7 @@ def check_flash_decode(rows: dict) -> None:
                         f"call, SDPA {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
                         f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     timed["padded"] = check_padded_heads(inputs, held)
+    timed["ragged"] = check_ragged(inputs)
     b, h, kv, dh, s = 4, 40, 8, 128, 4096
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(b, h, kv, dh, s, dtype)
@@ -902,9 +999,11 @@ def attn_launches(cfg, workload, results, reqs, steps) -> dict:
 
 
 # ---------------------------------------------------------- phases 6, 8
-def kernel_class(name: str, moe: bool = False) -> str:
+def kernel_class(name: str, moe: bool = False, fine: bool = False) -> str:
     """A kernel's class by its name; ``moe`` splits out the MoE dispatch's
-    kernels of a MoE model's trace (elsewhere they are "other")."""
+    kernels of a MoE model's trace (elsewhere they are "other"); ``fine``
+    (a training step) splits "other" into softmax, reductions, copies and
+    casts, index kernels (gathers and their backward) and elementwise."""
     low = name.lower()
     if "rwkv" in low:
         return "rwkv"
@@ -918,6 +1017,13 @@ def kernel_class(name: str, moe: bool = False) -> str:
         return "netkv"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
+    if fine:
+        for cls, keys in (("softmax", ("softmax",)), ("reduce", ("reduce",)),
+                          ("copy", ("copy", "memcpy", "memset", "fill", "cat")),
+                          ("index", ("index", "gather", "scatter", "sort"))):
+            if any(k in low for k in keys):
+                return cls
+        return "elementwise"
     if not moe:
         return "other"
     # The MoE dispatch: top-k's sort, the slot count's scan, the slot
@@ -934,7 +1040,7 @@ def kernel_class(name: str, moe: bool = False) -> str:
     return "other"
 
 
-def traced(fn, n: int, moe: bool = False) -> dict:
+def traced(fn, n: int, moe: bool = False, fine: bool = False) -> dict:
     """Run ``fn`` ``n`` times under ``torch.profiler``, after ``n`` untraced
     warm-up calls under it: device time by kernel
     class, summed over device-side events only (kernels, copies, fills) so
@@ -978,7 +1084,7 @@ def traced(fn, n: int, moe: bool = False) -> dict:
         if (ev.device_type != DeviceType.CUDA or us <= 0 or ev.key == "Command Buffer Full"
                 or ev.key.startswith("ProfilerStep")):
             continue
-        cls = kernel_class(ev.key, moe)
+        cls = kernel_class(ev.key, moe, fine)
         by_class[cls] = by_class.get(cls, 0.0) + us
         count[cls] = count.get(cls, 0) + ev.count
         top.append((us, ev.count, ev.key))
@@ -1059,6 +1165,103 @@ def check_bitwise_steps(cluster, prompts) -> None:
     say(f"[serve] {cluster.cfg.name}: two prefills of a {len(prompts[0])}-token prompt and "
         f"two decode steps of {de.n_slots} slots at pos {de.cache['pos']}: logits and caches "
         f"bitwise equal")
+
+
+# The per-slot decode at full width: 4 rows prefilled with 2048 tokens, then
+# decoded from the positions of RAGGED less one (each row writes its new K/V
+# at its position and attends to pos + 1 keys).
+SLOT_POS = tuple(n - 1 for n in RAGGED)
+TIMED_STEPS = 5   # of each, scalar and ragged, on the host clock
+
+
+def check_slot_decode(model) -> int:
+    """``decode_step`` with a (B,) vector ``pos`` on ``model`` at full
+    width.  All entries equal give bitwise the scalar step's logits and
+    cache.  With ragged entries (``SLOT_POS``): every cache leaf changes
+    only at each row's own position; layer 0's new K/V rows (RoPE at each
+    row's position, the write index) and the longest row's logits (K4's
+    split is the scalar launch's) are bitwise those of the row decoded at
+    its own scalar position in a batch of 4 copies of it; each other row's
+    logits are held to its copies and to the row decoded alone at batch 1
+    within twice what a row of the scalar step differs from itself decoded
+    alone (a random bf16 model of 40 layers turns a last-bit difference
+    into a few percent of its logits), or BF16_ROW if more.  Then
+    TIMED_STEPS ragged and scalar steps each on the host clock (medians).
+    Returns K4's
+    calls (one a layer a step, counted as the path's)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, prefill
+
+    cfg = model.cfg
+    b, s = len(SLOT_POS), 2048
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+    _, cache = prefill(model, prompt, cache_len=s + 8)
+    before = build.LAUNCHES["flash_decode"]
+
+    def at(pos, rows=slice(None)):
+        return {k: pos if k == "pos" else v[:, rows].clone() for k, v in cache.items()}
+
+    def timed_step(pos):
+        c = at(pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_step(model, tok, c)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def median_ms(pos) -> float:
+        return sorted(timed_step(pos)[1] for _ in range(TIMED_STEPS))[TIMED_STEPS // 2]
+
+    def rel(got, want) -> float:
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    def alone(row, pos):
+        return decode_step(model, tok[row:row + 1], at(pos, slice(row, row + 1)))[0][0]
+
+    (ls, cs), _ = timed_step(s)
+    (lv, cv), _ = timed_step(torch.full((b,), s, dtype=torch.int32))
+    ensure(torch.equal(ls, lv) and all(torch.equal(cs[k], cv[k]) for k in cs if k != "pos"),
+           f"{cfg.name}: a vector pos of equal entries differs from the scalar step")
+    ensure(cv["pos"].tolist() == [s + 1] * b, ("pos", cv["pos"]))
+    del cs, cv
+    baseline = max(rel(ls[row], alone(row, s)) for row in range(b))
+    tol = max(2 * baseline, BF16_ROW)
+    (lr, cr), _ = timed_step(torch.tensor(SLOT_POS))
+    ensure(bool(torch.isfinite(lr).all()), "a non-finite logit")
+    written = torch.zeros((b, s + 8), dtype=torch.bool, device="cuda")
+    written[torch.arange(b), torch.tensor(SLOT_POS)] = True
+    for key in ("k0", "v0"):
+        changed = (cr[key] != cache[key]).flatten(3).any(dim=-1)   # (P, B, S)
+        ensure(not bool((changed & ~written).any()), f"{key}: a row changed past its position")
+    copies, single = [], []
+    for row, p in enumerate(SLOT_POS):
+        same, cc = decode_step(model, tok[[row] * b], at(p, [row] * b))
+        for key in ("k0", "v0"):
+            ensure(torch.equal(cr[key][0, row, p], cc[key][0, 0, p]),
+                   f"row {row}: layer 0's new {key[0]} row differs from its scalar step's")
+        ensure(row != 0 or torch.equal(lr[0], same[0]),
+               "the longest row's logits differ from its scalar step's")
+        copies.append(rel(lr[row], same[0]))
+        single.append(rel(lr[row], alone(row, p)))
+        ensure(copies[-1] <= tol and single[-1] <= tol,
+               (cfg.name, "row", row, copies[-1], single[-1], "baseline", baseline))
+        del cc
+    del cr
+    scalar_ms, ragged_ms = median_ms(s), median_ms(torch.tensor(SLOT_POS))
+    calls = build.LAUNCHES["flash_decode"] - before
+    ensure(calls == cfg.n_attn_layers * (3 + 3 * b + 2 * TIMED_STEPS), ("flash_decode calls", calls))
+    say(f"[serve] {cfg.name} per-slot decode (B {b}, prompts of {s}): a vector pos of equal "
+        f"entries gives bitwise the scalar step's logits and cache; at pos {list(SLOT_POS)} "
+        f"each row's cache changes at its position only, layer 0's new K/V rows and the "
+        f"longest row's logits are bitwise the scalar steps'; the rows' logits within "
+        f"{[round(x, 4) for x in copies]} x max|logit| of the row at its own scalar pos in a "
+        f"batch of its copies and {[round(x, 4) for x in single]} of the row alone at batch 1 "
+        f"(a scalar step's rows against themselves alone: {baseline:.4f}; held at {tol:.4f}); "
+        f"a step {ragged_ms:.2f} ms wall (scalar pos: {scalar_ms:.2f} ms; medians of "
+        f"{TIMED_STEPS}); {calls} K4 calls")
+    return calls
 
 
 def mamba_bound(p: dict, b: int, s: int) -> tuple[float, str, float, float]:
@@ -1806,6 +2009,179 @@ def check_waterfill_progressive(rows: dict, tables) -> None:
         library="none: no single PyTorch call computes the fixed point")
 
 
+# ---------------------------------------------------------------- phase 12
+# smollm-135m trained at full width, nothing cut: the train_4k shape's
+# sequence of 4096 at a global batch of 8 (of its 256), 4 microbatches (its
+# train_microbatches), AdamW on f32 master parameters, bf16 compute, remat.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT, TRAIN_LR = 8, 4096, 20, 10, 1e-3
+
+
+def train_step_fn(spec, lr: float, microbatches: int | None = None):
+    from repro_torch.models.model import dtype_of
+    from repro_torch.train import make_optimizer, make_train_step
+
+    opt = make_optimizer(spec.optimizer, lr=lr)
+    return opt, make_train_step(opt, microbatches=microbatches or spec.train_microbatches,
+                                accum_dtype=dtype_of(spec.grad_accum_dtype))
+
+
+def phase_train_smoke() -> None:
+    """12a: one train step (2 microbatches of 2 x 24 tokens, the arch's
+    optimizer) of every registered arch's smoke config in f32 on the card
+    against the same step on the CPU from the same weights: loss and
+    grad_norm rtol 1e-5 (rwkv6's grad_norm 1e-4), parameters as
+    tests/test_torch_train.py holds them against JAX (at most 1% of a
+    leaf's elements outside rtol 1e-5 + atol 1e-6, the difference's norm
+    within 1e-2 of the step's)."""
+    from repro_torch.configs import ALL, get_spec
+    from repro_torch.models import Model, init_random_
+    from repro_torch.train import synth_batch
+
+    worst = {}
+    for arch in ALL:
+        spec = get_spec(arch)
+        cfg = dataclasses.replace(spec.smoke, compute_dtype=torch.float32)
+        cpu = init_random_(Model(cfg, device="cpu", train_dtype="float32"), 0)
+        start = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+        card = copy.deepcopy(cpu).to("cuda")
+        opt, step = train_step_fn(dataclasses.replace(spec, grad_accum_dtype="float32"), 1e-3, 2)
+        metrics = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            batch = synth_batch(cfg, global_batch=4, seq_len=24, seed=1, step=0, device=dev)
+            metrics.append(step(model, opt.init(dict(model.named_parameters())), batch)[2])
+        (mc, mg) = [{k: v.item() for k, v in m.items()} for m in metrics]
+        gn_rtol = 1e-4 if arch == "rwkv6-3b" else 1e-5
+        ensure(abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"]), (arch, mg, mc))
+        ensure(abs(mg["grad_norm"] - mc["grad_norm"]) <= gn_rtol * mc["grad_norm"], (arch, mg, mc))
+        ratio = 0.0
+        for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+            got, want = pg.detach().cpu(), pc.detach()
+            off = ((got - want).abs() > 1e-5 * want.abs() + 1e-6).float().mean().item()
+            update = (want - start[name]).norm().item()
+            r = (got - want).norm().item() / max(update, 1e-12)
+            ensure(off <= 1e-2 and r <= 1e-2, (arch, name, off, r))
+            ratio = max(ratio, r)
+        worst[arch] = (abs(mg["loss"] / mc["loss"] - 1), abs(mg["grad_norm"] / mc["grad_norm"] - 1),
+                       ratio)
+    say("[train] one step of every smoke config, card against CPU (f32): " + ", ".join(
+        f"{a} loss {l:.2g} gnorm {g:.2g} params {r:.2g}" for a, (l, g, r) in worst.items()))
+
+
+def train_bound(model, b: int, s: int) -> dict:
+    """A full-width step's least time at the card's bf16 peak: the products
+    6 operations a weight a token (forward and backward; the embedding is a
+    gather, not a product) and the causal half of each layer's attention
+    square, 4·H·dh a (query, key) pair in the forward and twice that in the
+    backward.  What runs is more: remat repeats each layer's forward (2 a
+    weight a token, and its attention), and the plain attention scores the
+    whole square; both are given beside the bound."""
+    cfg = model.cfg
+    t = b * s
+    layer = sum(p.numel() for n, p in model.named_parameters()
+                if n.startswith("layers.") and p.dim() > 2)
+    head = model.lm_head.numel()
+    pairs = b * s * (s + 1) // 2 * cfg.n_attn_layers
+    attn = 4 * pairs * cfg.n_heads * cfg.d_head
+    need = 6 * (layer + head) * t + 3 * attn
+    squares = 4 * b * s * s * cfg.n_attn_layers * cfg.n_heads * cfg.d_head   # one pass
+    run = 6 * (layer + head) * t + 2 * layer * t + 4 * squares
+    return dict(flop=need, bound_ms=need / PEAK_FLOPS[torch.bfloat16] * 1e3, flop_run=run,
+                product_flop=6 * (layer + head) * t, attention_flop=3 * attn)
+
+
+def phase_train() -> None:
+    """12b: smollm-135m at full width, nothing cut, through the port's
+    training entry points (``Model(train_dtype=...)``, ``make_train_step``,
+    ``synth_batch``, ``save_checkpoint``/``restore_latest``), under
+    ``torch.use_deterministic_algorithms(True)``: TRAIN_STEPS steps from
+    ``init_random_`` seed 0 with a checkpoint at TRAIN_CKPT; every loss and
+    grad_norm finite, the last loss below the first; wall ms a step on the
+    host clock (each step ends in the host read of its loss), tokens/s, peak
+    memory, the bound; the checkpoint restored and steps TRAIN_CKPT to
+    TRAIN_STEPS run again: every parameter bitwise equal to the
+    uninterrupted run's; then one step under the profiler."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, init_random_
+    from repro_torch.train import restore_latest, save_checkpoint, synth_batch
+
+    spec = get_spec(TRAIN_ARCH)
+    cfg = spec.model
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        model = init_random_(Model(cfg, device="cuda", train_dtype=spec.train_param_dtype), 0)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt, step = train_step_fn(spec, TRAIN_LR)
+        state = opt.init(dict(model.named_parameters()))
+
+        def run(model, state, start, end, ckpt_at=None):
+            losses, gnorms, walls = [], [], []
+            for i in range(start, end):
+                batch = synth_batch(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0,
+                                    step=i, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, state, m = step(model, state, batch)
+                losses.append(m["loss"].item())
+                walls.append((time.perf_counter() - t0) * 1e3)
+                gnorms.append(m["grad_norm"].item())
+                if i + 1 == ckpt_at:
+                    save_checkpoint(ckpt, i + 1, {"params": model, "opt": state})
+            return state, losses, gnorms, walls
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, losses, gnorms, walls = run(model, state, 0, TRAIN_STEPS, TRAIN_CKPT)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ensure(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms))
+        ensure(losses[-1] < losses[0], ("the loss did not fall", losses))
+        final = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step0, tree = restore_latest(ckpt, {"params": model, "opt": state})
+        ensure(step0 == TRAIN_CKPT and tree["params"] is model, ("restored", step0))
+        state, again, _, _ = run(model, tree["opt"], step0, TRAIN_STEPS)
+        ensure(again == losses[TRAIN_CKPT:], ("the restarted losses differ", again, losses))
+        same = [n for n, p in model.named_parameters() if torch.equal(p, final[n])]
+        ensure(len(same) == len(final), ("restart not bitwise", set(final) - set(same)))
+        del final
+        batch = synth_batch(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0,
+                            step=TRAIN_STEPS, device="cuda")
+        tr = traced(lambda: step(model, state, batch)[2]["loss"].item(), 1, fine=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    steady = sorted(walls[1:])
+    step_ms = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bnd = train_bound(model, TRAIN_BATCH, TRAIN_SEQ)
+    say(f"[train] {TRAIN_ARCH} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params:,} parameters, {spec.train_param_dtype} master, "
+        f"{str(cfg.compute_dtype).removeprefix('torch.')} compute, remat {cfg.remat}), "
+        f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}, {spec.train_microbatches} microbatches, "
+        f"{spec.optimizer} lr {TRAIN_LR}: {TRAIN_STEPS} steps in {total_s:.1f} s")
+    say(f"[train] losses {[round(x, 4) for x in losses]}")
+    say(f"[train] grad norms {[round(x, 3) for x in gnorms]}")
+    say(f"[train] step wall {step_ms:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+        f"{walls[0]:.1f} ms), {tokens / step_ms * 1e3:,.0f} tokens/s, peak memory "
+        f"{peak / 1e9:.2f} GB; bound {bnd['bound_ms']:.1f} ms ({bnd['flop'] / 1e12:.1f} TFLOP: "
+        f"products {bnd['product_flop'] / 1e12:.1f}, causal attention "
+        f"{bnd['attention_flop'] / 1e12:.1f}; {bnd['flop_run'] / 1e12:.1f} TFLOP run with remat "
+        f"and whole squares)")
+    say(f"[train] checkpoint at step {TRAIN_CKPT} restored under deterministic algorithms, "
+        f"steps {TRAIN_CKPT}-{TRAIN_STEPS} again: losses equal, parameters bitwise equal")
+    say(f"[train] traced step: wall {tr['wall_ms']:.1f} ms, device busy {tr['device_ms']:.1f} ms "
+        f"({tr['busy_share']:.1%}); by class " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in tr["by_class_ms"].items()))
+    for us, count, key in tr.pop("top"):
+        say(f"[train]     {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    say("[train] " + json.dumps(dict(arch=TRAIN_ARCH, step_ms=step_ms, walls_ms=walls,
+                                     tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak / 1e9,
+                                     losses=losses, grad_norms=gnorms, bound=bnd, trace=tr)))
+
+
 # The dense models served at full width after granite-moe, with their
 # request counts: 4, half the workload's 8, to hold the script's time
 # (the first 4 decisions, the third request's prefix hit among them, are
@@ -1855,6 +2231,20 @@ def main(argv=None) -> int:
         return 0
     phase_build()
     lap("build")
+    if (sys.argv[1:] if argv is None else argv) == ["--train"]:
+        # This slice alone: K4's checks, the per-slot decode at qwen3-14b's
+        # width, phase 12.  No kernels line and no ok line.
+        check_flash_decode({})
+        lap("kernels")
+        from repro_torch.models import Model, init_random_
+
+        check_slot_decode(init_random_(Model(full_config("qwen3-14b"), device="cuda"), 0))
+        free()
+        lap("per-slot decode")
+        phase_train_smoke()
+        phase_train()
+        lap("train")
+        return 0
     rows: dict = {}
     check_kv_pack(rows)
     check_flash_decode(rows)
@@ -1868,6 +2258,7 @@ def main(argv=None) -> int:
     lap("match")
     launches, cluster, prompts = phase_serve(full_config("qwen3-14b"))
     phase_trace(cluster, prompts)
+    launches["flash_decode"] += check_slot_decode(cluster.model)
     del cluster
     free()
     rwkv_launches, cluster, prompts = phase_serve(full_config("rwkv6-3b"))
@@ -1921,6 +2312,9 @@ def main(argv=None) -> int:
         v["netkv_score_cohort"] for v in sim_launches.values())
     launches["waterfill_progressive"] = sum(
         v["waterfill_progressive"] for v in sim_launches.values())
+    phase_train_smoke()
+    phase_train()
+    lap("train")
     kernels = []
     for k in KERNELS:
         entry = rows[k]

@@ -11,7 +11,7 @@ CONFIG = ModelConfig(
     ffn_pattern=("moe_res",),
     moe=MoEConfig(n_experts=128, top_k=2, d_expert=4864, dense_residual=True,
                   dispatch_chunks=16),
-    rope_theta=1e4,
+    rope_theta=1e4, remat=True,
 )
 SMOKE = ModelConfig(
     name="arctic-480b-smoke", d_model=128, n_layers=3, n_heads=8, n_kv_heads=2,
@@ -20,4 +20,6 @@ SMOKE = ModelConfig(
     moe=MoEConfig(n_experts=8, top_k=2, d_expert=96, dense_residual=True),
 )
 SPEC = ArchSpec(arch_id="arctic-480b", model=CONFIG, smoke=SMOKE,
-                source="[hf:Snowflake/snowflake-arctic-base; hf]")
+                source="[hf:Snowflake/snowflake-arctic-base; hf]",
+                train_microbatches=16, optimizer="adafactor",
+                train_param_dtype="bfloat16", grad_accum_dtype="bfloat16")

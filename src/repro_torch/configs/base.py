@@ -1,9 +1,10 @@
-"""ArchSpec: an architecture's full-width model, its smoke-scale twin and
-the simulator's transfer-size model.
+"""ArchSpec: an architecture's full-width model, its smoke-scale twin, its
+training knobs and the simulator's transfer-size model.
 
 ``repro/configs/base.py`` imports JAX at module level, so the port keeps this
-small version of its own; the benchmark input shapes of the JAX spec belong
-to the dry run, which is not ported yet (ROADMAP §1, sharding and launch).
+small version of its own; the benchmark input shapes of the JAX spec and its
+serving-sharding knobs belong to the dry run, which is not ported yet
+(ROADMAP §1, sharding and launch).
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ class ArchSpec:
     model: ModelConfig
     smoke: ModelConfig
     source: str
+    train_microbatches: int = 16
+    optimizer: str = "adamw"              # "adamw" | "adafactor"
+    train_param_dtype: str = "float32"    # "bfloat16" for arctic's master copy
+    grad_accum_dtype: str = "float32"     # "bfloat16" halves the accumulator
 
     def kv_spec(self) -> ModelKVSpec:
         """Simulator-side transfer-size model (Eq. 1 generalised)."""

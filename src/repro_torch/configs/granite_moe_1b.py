@@ -10,7 +10,7 @@ CONFIG = ModelConfig(
     d_head=64, d_ff=512, vocab_size=49155,
     ffn_pattern=("moe",),
     moe=MoEConfig(n_experts=32, top_k=8, d_expert=512, dispatch_chunks=4),
-    rope_theta=1e4,
+    rope_theta=1e4, remat=True,
 )
 SMOKE = ModelConfig(
     name="granite-moe-smoke", d_model=128, n_layers=3, n_heads=4, n_kv_heads=2,
@@ -18,4 +18,5 @@ SMOKE = ModelConfig(
     ffn_pattern=("moe",), moe=MoEConfig(n_experts=8, top_k=4, d_expert=96),
 )
 SPEC = ArchSpec(arch_id="granite-moe-1b-a400m", model=CONFIG, smoke=SMOKE,
-                source="[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]")
+                source="[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]",
+                train_microbatches=8)

@@ -22,7 +22,7 @@ CONFIG = ModelConfig(
     d_head=128, d_ff=14336, vocab_size=65536,
     block_pattern=_BLOCKS, ffn_pattern=_FFN,
     moe=MoEConfig(n_experts=16, top_k=2, d_expert=14336, dispatch_chunks=8),
-    rope_theta=1e4,
+    rope_theta=1e4, remat=True,
 )
 SMOKE = ModelConfig(
     name="jamba-52b-smoke", d_model=128, n_layers=8, n_heads=4, n_kv_heads=2,
@@ -31,4 +31,5 @@ SMOKE = ModelConfig(
     moe=MoEConfig(n_experts=4, top_k=2, d_expert=256),
 )
 SPEC = ArchSpec(arch_id="jamba-v0.1-52b", model=CONFIG, smoke=SMOKE,
-                source="[arXiv:2403.19887; hf]")
+                source="[arXiv:2403.19887; hf]",
+                train_microbatches=16, optimizer="adafactor")

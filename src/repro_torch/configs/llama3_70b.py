@@ -7,11 +7,12 @@ from .base import ArchSpec
 
 CONFIG = ModelConfig(
     name="llama3-70b", d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8,
-    d_head=128, d_ff=28672, vocab_size=128256, rope_theta=5e5,
+    d_head=128, d_ff=28672, vocab_size=128256, rope_theta=5e5, remat=True,
 )
 SMOKE = ModelConfig(
     name="llama3-70b-smoke", d_model=128, n_layers=4, n_heads=8, n_kv_heads=2,
     d_head=16, d_ff=256, vocab_size=512,
 )
 SPEC = ArchSpec(arch_id="llama3-70b", model=CONFIG, smoke=SMOKE,
-                source="[arXiv:2407.21783; hf]")
+                source="[arXiv:2407.21783; hf]",
+                train_microbatches=16)

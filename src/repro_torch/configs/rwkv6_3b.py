@@ -12,7 +12,7 @@ from .base import ArchSpec
 CONFIG = ModelConfig(
     name="rwkv6-3b", d_model=2560, n_layers=32, n_heads=40, n_kv_heads=40,
     d_head=64, d_ff=8960, vocab_size=65536,
-    block_pattern=("rwkv",), ffn_pattern=("none",),
+    block_pattern=("rwkv",), ffn_pattern=("none",), remat=True,
 )
 SMOKE = ModelConfig(
     name="rwkv6-smoke", d_model=128, n_layers=3, n_heads=2, n_kv_heads=2,
@@ -20,4 +20,5 @@ SMOKE = ModelConfig(
     block_pattern=("rwkv",), ffn_pattern=("none",),
 )
 SPEC = ArchSpec(arch_id="rwkv6-3b", model=CONFIG, smoke=SMOKE,
-                source="[arXiv:2404.05892; hf]")
+                source="[arXiv:2404.05892; hf]",
+                train_microbatches=4)

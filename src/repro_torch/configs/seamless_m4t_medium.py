@@ -13,11 +13,12 @@ from .base import ArchSpec
 CONFIG = ModelConfig(
     name="seamless-m4t-medium", d_model=1024, n_layers=12, n_heads=16, n_kv_heads=16,
     d_head=64, d_ff=4096, vocab_size=256206,
-    n_enc_layers=12, frontend="audio", rope_theta=1e4,
+    n_enc_layers=12, frontend="audio", rope_theta=1e4, remat=True,
 )
 SMOKE = ModelConfig(
     name="seamless-smoke", d_model=128, n_layers=2, n_heads=4, n_kv_heads=4,
     d_head=32, d_ff=256, vocab_size=512, n_enc_layers=2, frontend="audio",
 )
 SPEC = ArchSpec(arch_id="seamless-m4t-medium", model=CONFIG, smoke=SMOKE,
-                source="[arXiv:2308.11596; hf]")
+                source="[arXiv:2308.11596; hf]",
+                train_microbatches=8)

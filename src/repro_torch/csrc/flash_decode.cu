@@ -4,9 +4,12 @@
 // Replaces repro/kernels/flash_decode.py::_flash_decode_kernel.  Semantics
 // kept: q (B, H, dh) attends to the first pos rows of k/v (B, S, KV, dh) with
 // G = H / KV query heads per KV head; scale dh^-1/2; f32 softmax statistics
-// and accumulator; output acc / max(l, 1e-30) in q's dtype.  One scalar pos
-// for the whole batch, as in the reference.  Keys at or past pos are never
-// loaded (their masked weight is exactly 0 in the reference).
+// and accumulator; output acc / max(l, 1e-30) in q's dtype.  Either one
+// scalar pos for the whole batch, as in the reference, or a (B,) int32 device
+// vector of per-row lengths (lens, each in [1, pos], pos their maximum), the
+// per-slot decode of repro/models/model.py::_period_decode: row b attends to
+// its first lens[b] keys.  Keys at or past a row's length are never loaded
+// (their masked weight is exactly 0 in the reference).
 //
 // Bound on the H100: bytes.  Every valid key and value row is read once (at
 // qwen3-14b, B 4, KV 8, dh 128, bf16, pos 2056: 33.7 MB, 0.0101 ms at
@@ -27,8 +30,13 @@
 // With one range the block writes the output itself.  Otherwise it writes
 // its partial (m, l, acc) in f32 to a scratch tensor the wrapper allocates,
 // and flash_decode_combine_kernel, one block a (batch, query head), merges
-// the ranges in range order.  Every sum runs in a fixed order: two calls on
-// the same inputs are bitwise equal.  (A merge by the last block of each
+// the ranges in range order.  With per-row lengths the ranges cut [0, pos),
+// pos the longest row; a block whose range starts at or past its row's
+// length has no keys and writes an empty partial (m = -1e30, l = 0, acc = 0),
+// which the combine weighs by exp(-1e30 - m) = 0.  The split is the
+// scalar launch's at pos, so a vector of equal lengths gives its sums bit
+// for bit.  Every sum runs in a
+// fixed order: two calls on the same inputs are bitwise equal.  (A merge by the last block of each
 // (batch, KV head) to finish, found with an atomic arrival counter, was
 // slower: one block's merge of all the pair's ranges is a chain of L2
 // reads at the tail of the kernel.)
@@ -199,8 +207,8 @@ template <typename T, int C>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ out,
-                          float* __restrict__ part, int n_heads, int n_kv, int seq,
-                          int pos, int range, float scale) {
+                          float* __restrict__ part, const int* __restrict__ lens,
+                          int n_heads, int n_kv, int seq, int pos, int range, float scale) {
   constexpr int E = Vec<T>::E;
   constexpr int DH = C * E;
 
@@ -219,13 +227,33 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.y;
   const int n_split = gridDim.y;
   const int t0 = split * range;
-  const int n = min(range, pos - t0);  // keys of this range, >= 1
-  const int n_pad = (n + 15) / 16 * 16;
+  // Keys of this range: >= 1 for a scalar pos; with per-row lengths, <= 0
+  // where the row ends before the range starts (a length is clamped to pos).
+  const int len = lens == nullptr ? pos : min(lens[b], pos);
+  const int n = min(range, len - t0);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const long long bh0 = static_cast<long long>(b) * n_heads + kh * g_heads;
   const long long bh_total = static_cast<long long>(gridDim.x) * g_heads;
+  if (n <= 0) {  // uniform over the block: every thread leaves here
+    if (n_split == 1) {  // a row of length 0 (outside the contract): zeros
+      for (int o = tid; o < g_heads * DH; o += kThreads) {
+        out[bh0 * DH + o] = Vec<T>::from_float(0.0f);
+      }
+      return;
+    }
+    for (int o = tid; o < g_heads * DH; o += kThreads) {
+      part[(split * bh_total + bh0) * DH + o] = 0.0f;
+    }
+    if (tid < g_heads) {
+      float* ml = part + n_split * bh_total * DH + (split * bh_total + bh0 + tid) * 2;
+      ml[0] = kNegInf;
+      ml[1] = 0.0f;
+    }
+    return;
+  }
+  const int n_pad = (n + 15) / 16 * 16;
 
   // (0) the range's key rows, then its value rows, all in flight.
   const long long row = static_cast<long long>(n_kv) * DH;  // elements between keys
@@ -497,8 +525,8 @@ flash_decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
 }
 
 template <typename T, int C>
-int launch(const void* q, const void* k, const void* v, void* out, void* part, int batch,
-           int n_heads, int n_kv, int seq, int d_head, int pos, int n_split, int range,
+int launch(const void* q, const void* k, const void* v, void* out, void* part, const int* lens,
+           int batch, int n_heads, int n_kv, int seq, int d_head, int pos, int n_split, int range,
            float scale, cudaStream_t stream) {
   const Layout lay(range, C, Vec<T>::E, n_heads / n_kv, kMma<T>);
   if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
@@ -511,7 +539,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* part, i
   const dim3 grid(batch * n_kv, n_split);
   flash_decode_split_kernel<T, C><<<grid, kThreads, lay.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(part), n_heads, n_kv, seq, pos, range, scale);
+      static_cast<T*>(out), static_cast<float*>(part), lens, n_heads, n_kv, seq, pos, range,
+      scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   flash_decode_combine_kernel<T><<<batch * n_heads, kCombineThreads, 0, stream>>>(
@@ -521,12 +550,12 @@ int launch(const void* q, const void* k, const void* v, void* out, void* part, i
 
 template <typename T>
 int launch_for_dtype(const void* q, const void* k, const void* v, void* out, void* part,
-                     int batch, int n_heads, int n_kv, int seq, int d_head, int pos,
-                     int n_split, int range, float scale, cudaStream_t stream) {
-#define REPRO_FD_CASE(CC)                                                                   \
-  case CC:                                                                                  \
-    return launch<T, CC>(q, k, v, out, part, batch, n_heads, n_kv, seq, d_head, pos, n_split, \
-                         range, scale, stream);
+                     const int* lens, int batch, int n_heads, int n_kv, int seq, int d_head,
+                     int pos, int n_split, int range, float scale, cudaStream_t stream) {
+#define REPRO_FD_CASE(CC)                                                                  \
+  case CC:                                                                                 \
+    return launch<T, CC>(q, k, v, out, part, lens, batch, n_heads, n_kv, seq, d_head, pos, \
+                         n_split, range, scale, stream);
   switch (d_head / Vec<T>::E) {
     REPRO_FD_CASE(2)
     REPRO_FD_CASE(4)
@@ -544,13 +573,15 @@ int launch_for_dtype(const void* q, const void* k, const void* v, void* out, voi
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B, H, dh); k, v (B, S, KV, dh);
 // out (B, H, dh); part: n_split * B * H * (dh + 2) f32 of scratch when
-// n_split > 1 (partial accumulators, then (m, l) pairs).  The keys [0, pos)
-// are cut into n_split ranges of `range` keys, the last one shorter and none
-// empty.  The wrapper checks shapes, G <= 8, 1 <= pos <= S, and that dh is
+// n_split > 1 (partial accumulators, then (m, l) pairs); lens: nullptr, or
+// (B,) int32 per-row lengths in [1, pos] on the device (pos their maximum).
+// The keys [0, pos) are cut into n_split ranges of `range` keys, the last one
+// shorter and none empty (a row shorter than pos leaves its later ranges
+// empty).  The wrapper checks shapes, G <= 8, 1 <= pos <= S, and that dh is
 // 2..64 16-byte chunks, a power of two.  Launches the split kernel, and the
 // combine kernel when n_split > 1; returns the first CUDA error.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   void* out, void* part, int batch, int n_heads,
+                                   void* out, void* part, const int* lens, int batch, int n_heads,
                                    int n_kv, int seq, int d_head, int pos, int n_split,
                                    int range, float scale, int dtype, void* stream) {
   if (n_split < 1 || n_split > 65535 || range < 1 ||
@@ -560,12 +591,12 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_for_dtype<float>(q, k, v, out, part, batch, n_heads, n_kv, seq, d_head,
-                                   pos, n_split, range, scale, s);
+    return launch_for_dtype<float>(q, k, v, out, part, lens, batch, n_heads, n_kv, seq,
+                                   d_head, pos, n_split, range, scale, s);
   }
   if (dtype == 1) {
-    return launch_for_dtype<__nv_bfloat16>(q, k, v, out, part, batch, n_heads, n_kv, seq,
-                                           d_head, pos, n_split, range, scale, s);
+    return launch_for_dtype<__nv_bfloat16>(q, k, v, out, part, lens, batch, n_heads, n_kv,
+                                           seq, d_head, pos, n_split, range, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

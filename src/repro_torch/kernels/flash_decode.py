@@ -1,11 +1,13 @@
 """CUDA flash-decode wrapper (``csrc/flash_decode.cu``).
 
 GQA one-token attention of q (B, H, dh) over k/v caches (B, S, KV, dh) for
-the first ``pos`` positions, with an f32 online softmax; the output is in
-q's dtype.  The kernel splits ``[0, pos)`` into contiguous ranges, one block
-a (batch, KV head, range), and a second kernel merges the ranges in order;
-:func:`split_plan` chooses the ranges.  CUDA tensors only: the plain version
-is ``ref.flash_decode_ref`` and ``ops`` picks per tensor.
+the first ``pos`` positions, or row b over its first ``lengths[b]`` (the
+per-slot decode), with an f32 online softmax; the output is in q's dtype.
+The kernel splits ``[0, pos)`` into contiguous ranges, one block a (batch,
+KV head, range), and a second kernel merges the ranges in order;
+:func:`split_plan` chooses the ranges (over the longest row).  CUDA tensors
+only: the plain version is ``ref.flash_decode_ref`` and ``ops`` picks per
+tensor.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 class SplitPlan(NamedTuple):
     n_split: int    # ranges of [0, pos): grid (batch * n_kv, n_split)
     range_len: int  # keys of each range; the last holds pos - (n_split - 1) * range_len
+    # With per-row lengths pos is the longest row's; range i of a row of
+    # length L holds min(range_len, L - i * range_len) keys, none where that
+    # is <= 0 (its block writes an empty partial).
 
 
 def split_plan(batch: int, n_kv: int, pos: int, n_sm: int, row_bytes: int) -> SplitPlan:
@@ -65,7 +70,7 @@ def _lib():
     lib = build.library("flash_decode")
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 5 + [_I] * 8 + [_F, _I, _VP]
+        fn.argtypes = [_VP] * 6 + [_I] * 8 + [_F, _I, _VP]
         fn.restype = _I
     return lib
 
@@ -78,9 +83,13 @@ def plan_for(q: torch.Tensor, k_cache: torch.Tensor, pos: int) -> SplitPlan:
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: int) -> torch.Tensor:
+                 pos: int, lengths: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, H, dh); k/v (B, S, KV, dh); ``pos`` valid keys (1 <= pos <= S).
 
+    ``lengths``, a (B,) int32 tensor on q's device, gives each row its own
+    number of valid keys, each in [1, pos], with ``pos`` their maximum (the
+    caller knows it on the host: nothing is read back here).  A length past
+    ``pos`` is cut to ``pos``; a length below 1 gives that row zeros.
     ``pos = 0`` is left undefined by the reference and never reached by
     serving, so it raises here."""
     if q.dtype not in DTYPE_CODE:
@@ -102,6 +111,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     pos = int(pos)
     if not 1 <= pos <= s:
         raise ValueError(f"pos must lie in [1, {s}], got {pos}")
+    if lengths is not None:
+        build.require(lengths, "lengths", dtype=torch.int32, ndim=1, device=q.device, align=4)
+        if lengths.shape[0] != b:
+            raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
     plan = plan_for(q, k_cache, pos)
     out = torch.empty_like(q)
     # The ranges' partial (acc, m, l) in f32, merged by the second kernel.
@@ -112,6 +125,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lib = _lib()
     rc = lib.flash_decode_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                                  out.data_ptr(), None if part is None else part.data_ptr(),
+                                 None if lengths is None else lengths.data_ptr(),
                                  b, h, kv, s, dh, pos, plan.n_split, plan.range_len,
                                  dh ** -0.5, DTYPE_CODE[q.dtype], build.stream_ptr(q))
     build.check(lib, rc, "flash_decode")

@@ -2,7 +2,9 @@
 
 A tensor on a CUDA device goes to the kernel, which launches or raises;
 a tensor on the CPU goes to the plain PyTorch version in ``ref.py``.  There
-is no other route and no fallback from one to the other.
+is no other route and no fallback from one to the other.  The kernels have
+no backward, so inputs that require grad are refused on either device:
+training differentiates the plain versions, called by name.
 """
 
 from __future__ import annotations
@@ -20,13 +22,24 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel route for a tensor on {t.device}")
 
 
+def _no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward: refuse inputs that would need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: its inputs require grad (training "
+                           "differentiates the plain version)")
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: int) -> torch.Tensor:
+                 pos: int, lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: one-token attention over the first ``pos`` keys, or row b over
+    its first ``lengths[b]`` (a (B,) int32 tensor on q's device, each in
+    [1, pos], ``pos`` their maximum)."""
+    _no_grad("flash_decode", q, k_cache, v_cache)
     if _on_card(q):
         from .flash_decode import flash_decode as kernel
 
-        return kernel(q, k_cache, v_cache, pos)
-    return ref.flash_decode_ref(q, k_cache, v_cache, pos)
+        return kernel(q, k_cache, v_cache, pos, lengths)
+    return ref.flash_decode_ref(q, k_cache, v_cache, pos if lengths is None else lengths)
 
 
 def kv_pack(pool: torch.Tensor, block_table) -> torch.Tensor:
@@ -87,6 +100,7 @@ def waterfill_fast(caps: torch.Tensor, active: torch.Tensor,
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
               u: torch.Tensor):
     """K7: the WKV-6 recurrence, ``(y, final_state)``."""
+    _no_grad("rwkv_scan", r, k, v, w, u)
     if _on_card(r):
         from .rwkv_scan import rwkv_scan as kernel
 

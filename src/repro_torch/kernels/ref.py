@@ -15,14 +15,18 @@ BIG = 3.0e38
 
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
-    """q: (B, H, dh); k/v: (B, S, KV, dh); pos: valid length -> (B, H, dh),
-    computed in f32 (``repro/kernels/ref.py::flash_decode_ref``)."""
+                     v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """q: (B, H, dh); k/v: (B, S, KV, dh); pos: the valid length, an int, or
+    a (B,) integer tensor of each row's -> (B, H, dh), computed in f32
+    (``repro/kernels/ref.py::flash_decode_ref``; a vector masks as
+    ``repro/models/attention.py::decode_attention`` does)."""
     b, h, dh = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     qg = q.reshape(b, kv, g, dh).float()
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * dh ** -0.5
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(q.device).reshape(-1, 1, 1, 1)
     mask = torch.arange(s, device=q.device) < pos
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)

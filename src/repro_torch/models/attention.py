@@ -111,9 +111,10 @@ def cross_attention(q: torch.Tensor, k_mem: torch.Tensor, v_mem: torch.Tensor, *
 
 
 def kernel_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                            pos: int) -> torch.Tensor:
+                            pos: int, lengths: torch.Tensor | None = None) -> torch.Tensor:
     """One-token attention of q (B, H, dh) over the first ``pos`` rows of
-    k/v (B, S, KV, dh) through ``ops.flash_decode`` (K4 on the card).
+    k/v (B, S, KV, dh), or row b over its first ``lengths[b]`` (each in
+    [1, pos]), through ``ops.flash_decode`` (K4 on the card).
 
     Where KV does not divide H, q is padded with zero heads to KV * G, G =
     ceil(H/KV), and the first H outputs are kept: K4's query head j reads KV
@@ -122,6 +123,6 @@ def kernel_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
     kv = k_cache.shape[2]
     g = -(-h // kv)
     if kv * g == h:
-        return ops.flash_decode(q, k_cache, v_cache, pos)
+        return ops.flash_decode(q, k_cache, v_cache, pos, lengths)
     qp = torch.cat([q, q.new_zeros((b, kv * g - h, dh))], dim=1)
-    return ops.flash_decode(qp, k_cache, v_cache, pos)[:, :h]
+    return ops.flash_decode(qp, k_cache, v_cache, pos, lengths)[:, :h]

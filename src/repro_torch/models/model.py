@@ -1,4 +1,5 @@
-"""The decoder models of the port: config, parameters, prefill and decode.
+"""The decoder models of the port: config, parameters, prefill, decode and
+the training forward.
 
 A port of ``repro/models/model.py``.  A model is a stack of ``n_periods``
 identical periods; a period is a short sequence of blocks (``block_pattern``:
@@ -17,7 +18,8 @@ the period axis P (``layers.b{i}.wq`` is (P, d, H*dh) for period position
 ``k{i}``/``v{i}`` (P, B, S, KV, dh), the layout
 ``serving.transfer.paged_view`` pages; Mamba ``ssm{i}`` (P, B, d_inner, 16)
 f32 and ``conv{i}`` (P, B, 3, d_inner); RWKV ``wkv{i}`` (P, B, H, 64, 64)
-f32 and the shift states ``sa{i}``/``sc{i}`` (P, B, d).
+f32 and the shift states ``sa{i}``/``sc{i}`` (P, B, d).  ``pos`` is a
+host int, or a (B,) vector of per-slot positions, as JAX's decode takes.
 
 Weights are stored once in ``compute_dtype``.  JAX keeps f32 parameters and
 casts every f32 tensor of more than one dimension to ``compute_dtype`` on
@@ -33,6 +35,13 @@ and ``a_log`` (P, d_inner, 16); the MoE leaves (``layers.f{i}.moe.*``, the
 router included).  The blocks up-cast what JAX up-casts, where it is used:
 RWKV's ``bonus_u`` and decay exponent, Mamba's ``a_log``, the router.
 ``out_norm`` is 1-D and stays f32, as in JAX.
+
+A model made to train (``Model(..., train_dtype=...)``) keeps JAX's master
+parameters instead, every one in ``train_dtype`` (f32; bf16 for arctic) and
+requiring grad; :func:`forward_train` casts them per call as JAX does
+(:func:`compute_view`), sums the MoE aux loss, runs RWKV's recurrence on its
+plain version and, with ``cfg.remat``, recomputes each period in the
+backward pass.  The serving entry points are unchanged by it.
 
 An encoder-decoder (``n_enc_layers`` > 0, seamless-m4t-medium) adds an
 encoder of ``n_enc_layers`` periods of bidirectional attention (with RoPE)
@@ -51,10 +60,13 @@ the tokens.  Attention with H % KV != 0 runs the head-expanded paths of
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels import ref
 from ..kernels.build import resolve_device
 from .attention import chunked_causal_attention, cross_attention, kernel_decode_attention
 from .common import InitSpec, rms_norm, rope_tables, rotate, swiglu
@@ -94,6 +106,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     attn_chunk: int = 1024
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = False                # training: recompute each period in backward
 
     def __post_init__(self):
         assert len(self.block_pattern) == len(self.ffn_pattern)
@@ -194,6 +207,11 @@ def storage_dtype(cfg: ModelConfig, spec: InitSpec) -> torch.dtype:
     return cfg.compute_dtype if len(spec.shape) > 1 else torch.float32
 
 
+def dtype_of(name) -> torch.dtype:
+    """A torch dtype from its name ("float32", "bfloat16") or itself."""
+    return getattr(torch, name) if isinstance(name, str) else name
+
+
 class Model(nn.Module):
     """Parameters of one model, named as in the JAX parameter tree
     (``embed``, ``out_norm``, ``lm_head``, ``layers.b{i}.*`` and, for a
@@ -201,19 +219,27 @@ class Model(nn.Module):
     ``layers.f{i}.moe.*``; an encoder-decoder's ``enc_layers.{b0,f0}.*``,
     ``enc_norm`` and ``cross_layers.c{i}.*``); a subtree is a nested
     ``ParameterDict``.  Allocated uninitialised; fill with
-    :func:`init_random_` or ``convert.params_from_jax``."""
+    :func:`init_random_` or ``convert.params_from_jax``.
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    ``train_dtype`` (a dtype or its name: ``ArchSpec.train_param_dtype``)
+    makes a model to train: every parameter is a master copy in that dtype
+    that requires grad, as JAX's parameters are, and :func:`forward_train`
+    casts them to ``compute_dtype`` on each call.  Without it the model
+    serves, stored as :func:`storage_dtype` says, without grad."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, train_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.specs = param_specs(cfg)
+        trainable = train_dtype is not None
         dev = resolve_device(device)
         for tree in STACKED:
             if any(name.startswith(tree + ".") for name in self.specs):
                 setattr(self, tree, nn.ModuleDict())
         for name, spec in self.specs.items():
-            t = nn.Parameter(torch.empty(spec.shape, dtype=storage_dtype(cfg, spec),
-                                         device=dev), requires_grad=False)
+            dtype = dtype_of(train_dtype) if trainable else storage_dtype(cfg, spec)
+            t = nn.Parameter(torch.empty(spec.shape, dtype=dtype, device=dev),
+                             requires_grad=trainable)
             parts = name.split(".")
             if len(parts) == 1:
                 setattr(self, name, t)
@@ -304,9 +330,10 @@ def state_bytes(cfg: ModelConfig, seq_len: int) -> int:
     return total
 
 
-def _slice(node: nn.ParameterDict, i: int) -> dict:
-    """Period ``i`` of every leaf under ``node``, nested as the subtrees."""
-    return {k: _slice(v, i) if isinstance(v, nn.ParameterDict) else v[i]
+def _slice(node, i: int) -> dict:
+    """Period ``i`` of every leaf under ``node`` (a ``ParameterDict`` or a
+    dict), nested as the subtrees."""
+    return {k: _slice(v, i) if isinstance(v, (nn.ParameterDict, dict)) else v[i]
             for k, v in node.items()}
 
 
@@ -338,12 +365,13 @@ def _cross_q(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return (xn @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
 
 
-def _ffn(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The position's FFN on the normed x; serving drops the MoE aux loss."""
+def _ffn(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor):
+    """The position's FFN on the normed x: (out, the MoE aux loss, 0.0 for a
+    dense FFN).  Serving drops the aux loss; training sums it."""
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     if kind == "dense":
-        return swiglu(xn, p["gate"], p["up"], p["down"])
-    return (moe_ffn if kind == "moe" else moe_with_residual)(xn, p["moe"], cfg.moe)[0]
+        return swiglu(xn, p["gate"], p["up"], p["down"]), 0.0
+    return (moe_ffn if kind == "moe" else moe_with_residual)(xn, p["moe"], cfg.moe)
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -357,8 +385,9 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_inputs(model: Model, tokens: torch.Tensor, prefix_embeds) -> torch.Tensor:
-    """Token embeddings, behind the stub prefix embeddings (B, n, d) if any."""
-    x = model.embed[tokens]
+    """Token embeddings in ``compute_dtype`` (gathered, then cast, as JAX
+    does), behind the stub prefix embeddings (B, n, d) if any."""
+    x = model.embed[tokens].to(model.cfg.compute_dtype)
     if prefix_embeds is None:
         return x
     return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -381,11 +410,32 @@ def _cross_kv(model: Model, memory) -> dict:
 
 
 def _backbone(model: Model, x: torch.Tensor, cache: dict | None, cross: dict,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, train: bool = False):
+    """The period stack over x: (x, the MoE aux loss summed over periods in
+    order, as JAX's scan carries it).  ``train`` runs RWKV's recurrence on
+    its plain version (the one autograd differentiates) and, with
+    ``cfg.remat``, recomputes each period in the backward pass as JAX's
+    ``jax.checkpoint(..., nothing_saveable)`` does."""
     rope = _rope(model.cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    aux = 0.0
     for per in range(model.cfg.n_periods):
-        x = _period_seq(model, per, x, cache, rope, cross, causal)
-    return x
+        if train and model.cfg.remat:
+            x, a = checkpoint(_period_seq, model, per, x, cache, rope, cross, causal, train,
+                              use_reentrant=False)
+        else:
+            x, a = _period_seq(model, per, x, cache, rope, cross, causal, train)
+        aux = aux + a
+    return x, aux
+
+
+def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = frames.to(cfg.compute_dtype)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+    for per in range(cfg.n_enc_layers):
+        x = x + _attn_seq(cfg, _slice(model.enc_layers["b0"], per), x, rope, False)[0]
+        x = x + _ffn(cfg, "dense", _slice(model.enc_layers["f0"], per), x)[0]
+    return rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
 @torch.no_grad()
@@ -393,22 +443,79 @@ def encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
     """The encoder over stub frame embeddings (B, T, d): ``n_enc_layers``
     periods of bidirectional attention with RoPE and a dense FFN, then
     ``enc_norm``; returns the memory (B, T, d) in ``compute_dtype``."""
-    cfg = model.cfg
-    x = frames.to(cfg.compute_dtype)
-    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
-    for per in range(cfg.n_enc_layers):
-        x = x + _attn_seq(cfg, _slice(model.enc_layers["b0"], per), x, rope, False)[0]
-        x = x + _ffn(cfg, "dense", _slice(model.enc_layers["f0"], per), x)
-    return rms_norm(x, model.enc_norm, cfg.norm_eps)
+    return _encode(model, frames)
 
 
 @torch.no_grad()
 def forward_logits(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
                    causal: bool = True) -> torch.Tensor:
     """Logits (B, n_prefix + S, V) of every position; JAX's ``forward_logits``
-    without its MoE aux loss (a training term)."""
+    without its MoE aux loss (a training term: :func:`forward_logits_aux`)."""
     x = _embed_inputs(model, tokens, prefix_embeds)
-    return _logits(model, _backbone(model, x, None, _cross_kv(model, memory), causal))
+    return _logits(model, _backbone(model, x, None, _cross_kv(model, memory), causal)[0])
+
+
+def compute_view(model: Model) -> SimpleNamespace:
+    """The training model's parameters as its forward uses them: every
+    tensor of more than one dimension cast to ``compute_dtype`` (JAX casts
+    the f32 ones on each call, ``_backbone_seq``'s rule; a bf16 master is
+    cast only where compute runs in f32, where JAX promotes it), the
+    embedding left whole for its gather, the 1-D norms as stored.  The casts
+    are part of the autograd graph, so gradients reach the master copy in
+    its own dtype."""
+    cd = model.cfg.compute_dtype
+
+    def cast(t):
+        return t.to(cd) if t.dim() > 1 else t
+
+    def tree(node):
+        return {k: tree(v) if isinstance(v, nn.ParameterDict) else cast(v)
+                for k, v in node.items()}
+
+    view = SimpleNamespace(cfg=model.cfg, device=model.device, embed=model.embed,
+                           out_norm=model.out_norm, lm_head=cast(model.lm_head))
+    for name in STACKED:
+        if hasattr(model, name):
+            setattr(view, name, tree(getattr(model, name)))
+    if model.cfg.is_enc_dec:
+        view.enc_norm = model.enc_norm
+    return view
+
+
+def _logits_aux(view: SimpleNamespace, tokens, prefix_embeds, memory, causal: bool):
+    x = _embed_inputs(view, tokens, prefix_embeds)
+    x, aux = _backbone(view, x, None, _cross_kv(view, memory), causal, train=True)
+    return _logits(view, x), aux
+
+
+def forward_logits_aux(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
+                       causal: bool = True):
+    """JAX's ``forward_logits`` for training: (logits (B, n_prefix + S, V)
+    in ``compute_dtype``, the MoE aux loss summed over positions and
+    periods; 0.0 without a MoE), differentiable, on a model made with
+    ``train_dtype``."""
+    return _logits_aux(compute_view(model), tokens, prefix_embeds, memory, causal)
+
+
+def forward_train(model: Model, batch: dict, aux_weight: float = 0.01):
+    """Causal-LM (or seq2seq) loss of JAX's ``forward_train``: the mean NLL
+    of ``batch["labels"]`` under f32 ``log_softmax`` of the logits, plus
+    ``aux_weight`` times the MoE aux loss.  ``batch``: ``tokens``,
+    ``labels`` (B, S) and ``frames`` (B, T, d; an encoder-decoder) or
+    ``embeds`` (B, n, d; a vision model, whose logits past the prefix
+    count).  Returns (loss, {"ce", "aux"})."""
+    view = compute_view(model)
+    cfg = model.cfg
+    memory = _encode(view, batch["frames"]) if cfg.is_enc_dec else None
+    prefix = batch.get("embeds") if cfg.frontend == "vision" else None
+    logits, aux = _logits_aux(view, batch["tokens"], prefix, memory, True)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    loss = -ll.mean()
+    aux_out = aux.detach() if isinstance(aux, torch.Tensor) else torch.zeros((), device=ll.device)
+    return loss + aux_weight * aux, {"ce": loss.detach(), "aux": aux_out}
 
 
 @torch.no_grad()
@@ -431,20 +538,22 @@ def prefill(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
         cache[f"ck{i}"], cache[f"cv{i}"] = k, v
     if cross:
         cache["cross_memory"] = memory
-    x = _backbone(model, x, cache, cross)
+    x = _backbone(model, x, cache, cross)[0]
     cache["pos"] = s
     return _logits(model, x[:, -1:]), cache
 
 
 def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rope,
-                cross: dict, causal: bool) -> torch.Tensor:
-    """Period ``per`` over the sequence; writes its slice of every cache leaf
-    (none without a cache).  An attention position with cross K/V runs the
-    cross block after its self-attention.  RWKV's time mix runs its
-    recurrence through ``ops.rwkv_scan``."""
+                cross: dict, causal: bool, train: bool = False):
+    """Period ``per`` over the sequence: (x, the period's MoE aux loss);
+    writes its slice of every cache leaf (none without a cache).  An
+    attention position with cross K/V runs the cross block after its
+    self-attention.  RWKV's time mix runs its recurrence through
+    ``ops.rwkv_scan``, or, to train, through its plain version."""
     cfg = model.cfg
     eps = cfg.norm_eps
     b, s, _ = x.shape
+    aux = 0.0
     for i, blk, ffn, has_ffn in _positions(cfg):
         p = _slice(model.layers[f"b{i}"], per)
         if blk == "attn":
@@ -464,7 +573,8 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
                 cache[f"ssm{i}"][per] = state["ssm"]
                 cache[f"conv{i}"][per] = state["conv"]
         else:
-            out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps))
+            out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps),
+                                             scan=ref.rwkv_scan_ref if train else None)
             x = x + out
             out, last2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], eps))
             x = x + out
@@ -473,8 +583,22 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
                 cache[f"sa{i}"][per] = last
                 cache[f"sc{i}"][per] = last2
         if has_ffn:
-            x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
-    return x
+            out, a = _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
+            x = x + out
+            aux = aux + a
+    return x, aux
+
+
+def _slot_positions(pos, device, cache_len: int):
+    """A vector ``pos`` (B,) as (its positions on the device, the lengths
+    ``pos + 1`` as int32 there, the longest length, each row's flat index
+    ``b * cache_len + pos`` into a (B * cache_len, ...) view of a K/V
+    leaf): one copy to the card a step, nothing read back where ``pos``
+    lies on the host."""
+    host = torch.as_tensor(pos).to("cpu", torch.int64)
+    dev = host.to(device)
+    flat = torch.arange(len(host), device=device) * cache_len + dev
+    return dev, (dev + 1).to(torch.int32), int(host.max()) + 1, flat
 
 
 @torch.no_grad()
@@ -482,25 +606,39 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict):
     """token (B, 1) -> (logits (B, 1, V), cache); ``cache["pos"]`` advances
     by one.
 
+    ``cache["pos"]`` is an int, every row at that position, or, as in
+    JAX, a (B,) vector of per-slot positions (a tensor or an array; best
+    on the host, so that nothing is read back from the card).
+
     The cache is updated in place (JAX returns an updated copy; writing in
-    place saves a cache copy per layer).  Attention: the new K/V rows land
-    at the scalar ``pos`` and attention runs through
-    ``attention.kernel_decode_attention`` (K4) over the first pos+1
-    entries; an encoder-decoder's cross block then attends, through K4
-    too, to the whole ``ck{i}``/``cv{i}``.  Mamba and RWKV: each layer's
-    states are overwritten by the step's (plain PyTorch, as in JAX)."""
+    place saves a cache copy per layer).  Attention: each row's new K/V
+    lands at its position and attention runs through
+    ``attention.kernel_decode_attention`` (K4) over each row's first pos+1
+    entries (per-row lengths for a vector, one copy to the card a step);
+    RoPE turns each row by its position.  An encoder-decoder's cross block
+    then attends, through K4 too, to the whole ``ck{i}``/``cv{i}`` (pos =
+    S_enc for every row).  Mamba and RWKV: each layer's states are
+    overwritten by the step's (plain PyTorch, as in JAX)."""
     cfg = model.cfg
-    pos = int(cache["pos"])
-    rope = _rope(cfg, torch.full((1, 1), pos, device=model.device))
+    pos = cache["pos"]
+    if getattr(pos, "ndim", 0) == 1:
+        attn = [i for i, blk, _, _ in _positions(cfg) if blk == "attn"]
+        dev, *slots = _slot_positions(pos, model.device,
+                                      cache[f"k{attn[0]}"].shape[2] if attn else 1)
+        rope = _rope(cfg, dev[:, None])
+    else:
+        pos = int(pos)
+        slots = None
+        rope = _rope(cfg, torch.full((1, 1), pos, device=model.device))
     x = model.embed[token]
     for per in range(cfg.n_periods):
-        x = _period_decode(model, per, x, cache, pos, rope)
+        x = _period_decode(model, per, x, cache, pos, rope, slots)
     cache["pos"] = pos + 1
     return _logits(model, x), cache
 
 
-def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos: int,
-                   rope) -> torch.Tensor:
+def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, rope,
+                   slots=None) -> torch.Tensor:
     cfg = model.cfg
     eps = cfg.norm_eps
     b = x.shape[0]
@@ -509,9 +647,16 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos: in
         if blk == "attn":
             q, k, v = _qkv(cfg, p, x, *rope)
             k_cache, v_cache = cache[f"k{i}"][per], cache[f"v{i}"][per]
-            k_cache[:, pos] = k[:, 0]
-            v_cache[:, pos] = v[:, 0]
-            att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
+            if slots is None:
+                k_cache[:, pos] = k[:, 0]
+                v_cache[:, pos] = v[:, 0]
+                att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
+            else:
+                lengths, longest, flat = slots
+                for c, new in ((k_cache, k), (v_cache, v)):
+                    c.view(-1, *c.shape[2:]).index_copy_(0, flat, new[:, 0].to(c.dtype))
+                att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, longest,
+                                              lengths)
             x = x + att.reshape(b, 1, -1) @ p["wo"]
             if cfg.is_enc_dec:
                 cp = _slice(model.cross_layers[f"c{i}"], per)
@@ -536,5 +681,5 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos: in
             sa.copy_(last)
             sc.copy_(last2)
         if has_ffn:
-            x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
+            x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)[0]
     return x

@@ -7,8 +7,9 @@ WKV state and two (B, d) shift states per layer, whatever the prompt length.
 
 The prefill recurrence, a ``lax.scan`` over time in the JAX package, is one
 ``ops.rwkv_scan`` call (the ``rwkv_scan`` CUDA kernel for tensors on the
-card) on f32 r, k, v and w.  The decode step's one-token state update stays
-plain PyTorch, as it is plain jnp in JAX.  The dtype points are JAX's: the
+card) on f32 r, k, v and w; training runs the plain scan, which autograd
+differentiates as JAX differentiates its ``lax.scan``.  The decode step's
+one-token state update stays plain PyTorch, as it is plain jnp in JAX.  The dtype points are JAX's: the
 mixing and the projections run in the parameters' dtype (the model's
 compute dtype), ``_decay`` goes to f32 before its double ``exp``, ``bonus_u``
 is used in f32, and ``_group_norm`` runs in f32, multiplies by its scale and
@@ -88,9 +89,10 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (xf * torch.rsqrt(var + 1e-5)).reshape(*x.shape[:-2], -1) * scale.float()
 
 
-def rwkv_time_mix(p: dict, x: torch.Tensor):
+def rwkv_time_mix(p: dict, x: torch.Tensor, scan=None):
     """x (B, S, d) -> (out (B, S, d), (wkv_state (B, H, dh, dh) f32, last_x
-    (B, d)))."""
+    (B, d))).  ``scan`` runs the recurrence: ``ops.rwkv_scan`` by default
+    (K7 on the card, no backward), ``ref.rwkv_scan_ref`` to train."""
     b, s, d = x.shape
     h = d // HEAD_DIM
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shifted(x)).unbind(dim=2)
@@ -99,8 +101,8 @@ def rwkv_time_mix(p: dict, x: torch.Tensor):
     v = (xv @ p["w_v"]).reshape(b, s, h, HEAD_DIM)
     g = F.silu(xg @ p["w_g"])
     w = _decay(p, xw).reshape(b, s, h, HEAD_DIM)
-    y, final = ops.rwkv_scan(r.float(), k.float(), v.float(), w.contiguous(),
-                             p["bonus_u"].float())
+    y, final = (scan or ops.rwkv_scan)(r.float(), k.float(), v.float(), w.contiguous(),
+                                       p["bonus_u"].float())
     y = _group_norm(y, p["ln_x"]).to(x.dtype)
     return (y * g) @ p["w_o"], (final, x[:, -1])
 

@@ -18,7 +18,8 @@ for long prompts, which only saves training memory and sums in the same
 order) is plain PyTorch here; the JAX package has no Pallas kernel for it.
 What does not depend on the carried state, ``exp(dt * A)`` and
 ``dt * x * B``, is computed for a block of ``TIME_BLOCK`` steps at once, so
-the loop over time issues one in-place multiply-add a step; the readout
+the loop over time issues one in-place multiply-add a step (out of place
+where autograd records the steps, to train); the readout
 ``y_t = state_t . C_t`` runs once a block, summing over the state axis in
 another order than JAX's per-step ``einsum`` (within f32 rounding).
 """
@@ -95,8 +96,17 @@ def mamba_forward(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
         da = torch.exp(dt_t[blk, ..., None] * a)                       # (T, B, di, N)
         # dt*x*B for each step; the loop turns it into that step's state.
         states = (dt_t[blk] * conv_t[blk])[..., None] * b_t[blk, :, None, :]
-        for state_t, da_t in zip(states.unbind(0), da.unbind(0)):
-            state = state_t.addcmul_(state, da_t)
+        if states.requires_grad:
+            # Autograd saves each step's state, which the in-place form
+            # would overwrite: the same multiply-adds, out of place.
+            steps = []
+            for state_t, da_t in zip(states.unbind(0), da.unbind(0)):
+                state = torch.addcmul(state_t, state, da_t)
+                steps.append(state)
+            states = torch.stack(steps)
+        else:
+            for state_t, da_t in zip(states.unbind(0), da.unbind(0)):
+                state = state_t.addcmul_(state, da_t)
         ys.append(torch.einsum("tbin,tbn->tbi", states, c_t[blk]))
         del da, states
     y = torch.cat(ys).transpose(0, 1).to(x.dtype)       # (B, S, di)

@@ -135,7 +135,7 @@ class TestAttention:
 @pytest.mark.parametrize("which", ["model", "smoke"])
 def test_config_equals_jax(which):
     """Every field of the port's ModelConfig equals the JAX one (dtypes by
-    name); ``remat`` (a training option) is left out."""
+    name), ``remat`` (a training option) among them."""
     j = getattr(jax_spec(ARCH), which)
     t = getattr(get_spec(ARCH), which)
     jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -144,7 +144,7 @@ def test_config_equals_jax(which):
             assert str(value).removeprefix("torch.") == jnp.dtype(jf[name]).name
         else:
             assert value == jf[name], name
-    assert set(jf) - set(tf) == {"remat"}
+    assert set(jf) == set(tf)
     assert t.is_enc_dec and j.is_enc_dec and t.frontend == "audio"
     assert get_spec(ARCH).source == jax_spec(ARCH).source == "[arXiv:2308.11596; hf]"
 

@@ -137,6 +137,149 @@ def test_flash_decode_rejects(cuda):
         flash_decode(q, k.bfloat16(), k.bfloat16(), 1)
 
 
+def _ragged_cases(q, k, s):
+    """Per-row lengths where the split shows: the qwen3-14b serving case,
+    rows shorter than one range of the longest row's plan, rows ending on
+    a range's edge and one past it, a row at S, all rows of length 1."""
+    from repro_torch.kernels.flash_decode import plan_for
+
+    b = q.shape[0]
+    longest = min(2056, s)
+    r = plan_for(q, k, longest).range_len
+    rows = [(longest, longest // 2, 17, 1), (longest, r, r + 1, 2 * r),
+            (longest, r - 1, 1, 2 * r - 1), (s, s - 1, r, 3), (1, 1, 1, 1)]
+    return [tuple(min(x, s) for x in (row * b)[:b]) for row in rows]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,dh,s", [
+    (4, 40, 8, 128, 4096),  # qwen3-14b
+    (4, 9, 3, 64, 4096),    # smollm-135m
+    (3, 24, 3, 16, 600),    # G 8, dh 16
+    (2, 12, 4, 256, 700),   # dh 256
+    (4, 16, 16, 64, 300),   # G 1, a short cache
+])
+def test_flash_decode_per_row_lengths_match_plain(cuda, dtype, b, h, kv, dh, s):
+    """K4 with a (B,) int32 vector of lengths against its plain version,
+    two calls bitwise equal."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    q, k, v = _fd_inputs(cuda, dtype, b, h, kv, dh, s, 5 * b + dh)
+    rtol, atol = FD_TOL[dtype]
+    for lengths in _ragged_cases(q, k, s):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        out = flash_decode(q, k, v, max(lengths), lens)
+        want = ref.flash_decode_ref(q, k, v, lens).float()
+        excess = ((out.float() - want).abs() - rtol * want.abs() - atol).max().item()
+        assert excess <= 0, (lengths, excess)
+        assert torch.equal(out, flash_decode(q, k, v, max(lengths), lens)), lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_equal_lengths_are_the_scalar_launch(cuda, dtype):
+    """A vector of equal lengths gives the scalar launch's output bit for
+    bit: the same split, the same sums."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    q, k, v = _fd_inputs(cuda, dtype, 4, 40, 8, 128, 4096, 9)
+    for pos in (1, 17, 121, 2056, 4096):
+        lens = torch.full((4,), pos, dtype=torch.int32, device=cuda)
+        assert torch.equal(flash_decode(q, k, v, pos, lens), flash_decode(q, k, v, pos)), pos
+
+
+def test_flash_decode_rejects_bad_lengths(cuda):
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    q = torch.zeros((2, 4, 64), device=cuda)
+    k = torch.zeros((2, 32, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_decode(q, k, k, 4, torch.full((2,), 4, device=cuda))
+    with pytest.raises(ValueError, match="lengths"):
+        flash_decode(q, k, k, 4, torch.full((3,), 4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode(q, k, k, 4, torch.full((2,), 4, dtype=torch.int32))
+
+
+def test_kernels_refuse_inputs_that_require_grad_on_the_card(cuda):
+    """K4 and K7 have no backward: ``ops`` raises on inputs that require
+    grad and does not give way to the plain version."""
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 4, 64), device=cuda, requires_grad=True)
+    k = torch.zeros((1, 32, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_decode(q, k, k, 4)
+    r = torch.zeros((1, 8, 1, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rwkv_scan(r, r.detach(), r.detach(), r.detach(), torch.zeros((1, 64), device=cuda))
+
+
+def test_vector_pos_decode_on_card_matches_cpu(cuda):
+    """``decode_step`` with ragged per-slot positions on the card (K4 with
+    lengths) against the CPU, and equal positions bitwise the scalar step."""
+    from repro_torch.models import decode_step, prefill
+
+    cfg, cpu, gpu = _smoke_pair(cuda, "qwen3-14b")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 20), generator=torch.Generator().manual_seed(4))
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        _, cache = prefill(model, tokens.to(dev), cache_len=32)
+        scalar = {k: v if k == "pos" else v.clone() for k, v in cache.items()}
+        cache["pos"] = torch.tensor([20, 9, 1])
+        logits, cache = decode_step(model, tokens[:, :1].to(dev), cache)
+        outs.append((logits, cache))
+        if dev == cuda:
+            equal = {k: v.clone() if k != "pos" else torch.full((3,), 20) for k, v in scalar.items()}
+            ls, cs = decode_step(model, tokens[:, :1].to(dev), scalar)
+            lv, cv = decode_step(model, tokens[:, :1].to(dev), equal)
+            assert torch.equal(ls, lv)
+            assert all(torch.equal(cs[k], cv[k]) for k in cs if k != "pos")
+    (lc, cc), (lg, cg) = outs
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    assert torch.equal(cg["pos"], cc["pos"])
+    for key in cc:
+        if key != "pos":
+            torch.testing.assert_close(cg[key].cpu(), cc[key], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "granite-moe-1b-a400m", "rwkv6-3b",
+                                  "jamba-v0.1-52b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step (2 microbatches, the arch's optimizer) of the smoke
+    config in f32 on the card against the same step on the CPU: loss and
+    grad_norm rtol 1e-5 (rwkv6's grad_norm 1e-4), parameters held as the
+    CPU tests hold them against JAX (tests/test_torch_train.py)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, init_random_
+    from repro_torch.train import make_optimizer, make_train_step, synth_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_spec(arch)
+    cfg = dataclasses.replace(spec.smoke, compute_dtype=torch.float32)
+    cpu = init_random_(Model(cfg, device="cpu", train_dtype="float32"), 0)
+    start = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    gpu = copy.deepcopy(cpu).to(cuda)
+    opt = make_optimizer(spec.optimizer, lr=1e-3)
+    step = make_train_step(opt, microbatches=2)
+    metrics = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        batch = synth_batch(cfg, global_batch=4, seq_len=24, seed=1, step=0, device=dev)
+        metrics.append(step(model, opt.init(dict(model.named_parameters())), batch)[2])
+    (mc, mg) = metrics
+    assert abs(mg["loss"].item() - mc["loss"].item()) <= 1e-5 * abs(mc["loss"].item())
+    gn_rtol = 1e-4 if arch == "rwkv6-3b" else 1e-5
+    assert abs(mg["grad_norm"].item() - mc["grad_norm"].item()) <= gn_rtol * mc["grad_norm"].item()
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        got, want = pg.detach().cpu(), pc.detach()
+        off = (got - want).abs() > 1e-5 * want.abs() + 1e-6
+        assert off.float().mean().item() <= 1e-2, name
+        update = (want - start[name]).norm().item()
+        assert (got - want).norm().item() <= 1e-2 * max(update, 1e-12), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,kv,dh", [(6, 4, 64), (3, 2, 128), (5, 3, 64), (9, 2, 64)])
 def test_padded_heads_match_plain(cuda, dtype, h, kv, dh):

@@ -87,6 +87,38 @@ def test_split_plan_fills_the_card_and_keeps_short_caches_whole():
     assert 8 * plan.n_split >= fd.BLOCKS_PER_SM * H100_SMS
 
 
+def _row_keys(plan, length):
+    """Keys range i holds for a row of ``length`` under a plan cut over the
+    longest row: the kernel's min(range_len, length - i * range_len), none
+    where that is <= 0."""
+    return [max(0, min(plan.range_len, length - i * plan.range_len))
+            for i in range(plan.n_split)]
+
+
+@pytest.mark.parametrize("batch,n_kv,lengths,row_bytes", [
+    (4, 8, (2056, 1031, 17, 1), 256),     # qwen3-14b's per-slot decode
+    (4, 3, (4096, 4095, 128, 3), 128),    # smollm-135m
+    (2, 16, (300, 16), 128),
+    (3, 1, (1, 1, 1), 256),
+])
+def test_split_plan_over_the_longest_row(batch, n_kv, lengths, row_bytes):
+    """With per-row lengths the plan is the scalar plan of the longest row;
+    each row's non-empty ranges cover [0, length) once, in order, the empty
+    ones (an empty partial each) all come after them, and a row of the
+    longest length fills every range as the scalar launch does."""
+    longest = max(lengths)
+    plan = fd.split_plan(batch, n_kv, longest, H100_SMS, row_bytes)
+    for length in lengths:
+        keys = _row_keys(plan, length)
+        assert sum(keys) == length
+        full = [n for n in keys if n > 0]
+        assert keys[:len(full)] == full and all(n == 0 for n in keys[len(full):])
+        assert all(n == plan.range_len for n in full[:-1])
+        if length == longest:
+            assert len(full) == plan.n_split
+            assert [hi - lo for lo, hi in _ranges(plan, longest)] == keys
+
+
 @pytest.mark.parametrize("args", [
     (4, 8, 0, H100_SMS, 256), (0, 8, 10, H100_SMS, 256), (4, 8, 10, 0, 256),
     (4, 8, 10, H100_SMS, 0), (1, 1, fd.MAX_GRID_Y * fd.MAX_RANGE + 1, H100_SMS, 16),

@@ -45,7 +45,7 @@ def _np(x):
 def test_config_equals_jax(which):
     """Every field of the port's ModelConfig equals the JAX one (dtypes by
     name; ``moe`` None on both sides); the encoder and front-end fields are
-    at their defaults, and ``remat`` (a training option) is left out."""
+    at their defaults; ``remat`` (a training option) is compared too."""
     j = getattr(jax_spec(ARCH), which)
     t = getattr(get_spec(ARCH), which)
     jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -54,8 +54,7 @@ def test_config_equals_jax(which):
             assert str(value).removeprefix("torch.") == jnp.dtype(jf[name]).name
         else:
             assert value == jf[name], name
-    extra = set(jf) - set(tf)
-    assert extra == {"remat"}
+    assert set(jf) == set(tf)
     assert t.moe is None and j.moe is None
     assert (t.n_enc_layers, t.frontend, t.n_prefix_embeds) == (0, None, 0)
     assert get_spec(ARCH).source == jax_spec(ARCH).source == "[arXiv:2407.21783; hf]"

@@ -180,7 +180,7 @@ def setup(request):
 def test_config_equals_jax(arch, which):
     """Every field of the port's ModelConfig equals the JAX one, ``moe``
     field by field (dtypes by name); the encoder and front-end fields are at
-    their defaults, and ``remat`` (a training option) is left out."""
+    their defaults; ``remat`` (a training option) is compared too."""
     j = getattr(jax_spec(arch), which)
     t = getattr(get_spec(arch), which)
     jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -190,7 +190,7 @@ def test_config_equals_jax(arch, which):
         else:
             assert value == jf[name], name
     assert (t.moe is None) == (arch in DENSE_ARCHS)
-    assert set(jf) - set(tf) == {"remat"}
+    assert set(jf) == set(tf)
     assert (t.n_enc_layers, t.frontend, t.n_prefix_embeds) == (0, None, 0)
     assert get_spec(arch).source == jax_spec(arch).source
 

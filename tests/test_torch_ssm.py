@@ -213,7 +213,7 @@ def setup():
 def test_config_equals_jax(which):
     """Every field of the port's ModelConfig equals the JAX one (``moe``
     field by field, dtypes by name); the encoder and front-end fields are at
-    their defaults, and ``remat`` (a training option) is left out."""
+    their defaults; ``remat`` (a training option) is compared too."""
     if which == "16 layers":
         j, t = _cfg16(jax_spec(ARCH)), _cfg16(get_spec(ARCH))
     else:
@@ -224,7 +224,7 @@ def test_config_equals_jax(which):
             assert str(value).removeprefix("torch.") == jnp.dtype(jf[name]).name
         else:
             assert value == jf[name], name
-    assert set(jf) - set(tf) == {"remat"}
+    assert set(jf) == set(tf)
     assert (t.n_enc_layers, t.frontend, t.n_prefix_embeds) == (0, None, 0)
     assert t.n_periods == j.n_periods and t.n_attn_layers == j.n_attn_layers
     assert get_spec(ARCH).source == jax_spec(ARCH).source

@@ -74,7 +74,7 @@ def _inputs(jcfg, seed, b=2, s=20):
 @pytest.mark.parametrize("which", ["model", "smoke"])
 def test_config_equals_jax(which):
     """Every field of the port's ModelConfig equals the JAX one (dtypes by
-    name); ``remat`` (a training option) is left out."""
+    name), ``remat`` (a training option) among them."""
     j = getattr(jax_spec(ARCH), which)
     t = getattr(get_spec(ARCH), which)
     jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -83,7 +83,7 @@ def test_config_equals_jax(which):
             assert str(value).removeprefix("torch.") == jnp.dtype(jf[name]).name
         else:
             assert value == jf[name], name
-    assert set(jf) - set(tf) == {"remat"}
+    assert set(jf) == set(tf)
     assert t.frontend == "vision" and t.n_prefix_embeds > 0 and not t.is_enc_dec
     assert get_spec(ARCH).source == jax_spec(ARCH).source == "[arXiv:2404.16821; unverified]"
 
