@@ -7,6 +7,8 @@
                                  # call, run it from a copy of each
     python3 chip_smoke.py --train   # phases 1-2, K4's checks, the per-slot
                                     # decode at qwen3-14b's width and phase 12
+    python3 chip_smoke.py --dryrun  # phases 1-2, K4's checks (its self term and
+                                    # partials too), phase 5b and phase 12c
 
 Phases, in order; every check asserts and any failure exits non-zero:
 
@@ -33,7 +35,10 @@ Phases, in order; every check asserts and any failure exits non-zero:
               padded-head path (H 6 over KV 4, timed); with per-row lengths
               (the per-slot decode) at qwen3-14b's shape, (2056, 1031, 17, 1),
               rows shorter than a range and on a range's edge, bf16 and f32,
-              equal lengths bitwise the scalar launch (timed beside it);
+              equal lengths bitwise the scalar launch (timed beside it); with
+              the self term (pos 0-S, a row of length 0) and in partials mode
+              on 4 sequence shards (one empty) with their merge, each timed
+              at pos 2056 beside the scalar launch and SDPA;
               rwkv_scan also at ragged
               T, B 2, dh 16-128 across its column groups and in bf16; both
               deterministic (two calls bitwise equal)
@@ -54,6 +59,12 @@ Phases, in order; every check asserts and any failure exits non-zero:
               bitwise those of the row at its own scalar pos, every row's
               logits within twice a scalar step's own batch-vs-alone
               difference of the row alone at batch 1
+ 5b. readonly on the same model: ``decode_step(update_cache=False)``, 4 slots
+              after 2048-token prompts, 16 greedy steps beside the writing
+              step on a copy of the cache: the input cache bitwise unchanged
+              after each step, the first period's fragments bitwise the
+              written rows, logits and greedy tokens held to the writing
+              step's; both steps' wall and device ms
   6. trace    where the time of that path goes: one decode engine of the
               served cluster with its 4 slots full, decode steps on the host
               clock and under ``torch.profiler`` (device time by kernel class,
@@ -126,6 +137,10 @@ Phases, in order; every check asserts and any failure exits non-zero:
               and falling, wall ms a step, tokens/s, peak memory, the bound;
               a checkpoint at step 10 restored and steps 10-20 run again,
               parameters bitwise equal; one step under ``torch.profiler``
+ 12c. dryrun  ``python -m repro_torch.launch.dryrun --arch qwen3-14b --shape
+              decode_32k --mesh both`` as a subprocess on the CPU, after
+              every timed phase (meta tensors, a fake process group of 512
+              ranks): both cells ok
  13. one JSON line ``{"kernels": [...]}``
  14. last line ``{"ok": true, "device": {...}}``
 
@@ -1264,6 +1279,273 @@ def check_slot_decode(model) -> int:
     return calls
 
 
+# The read-only decode (phase 5b): K4 with a self term, its partials mode
+# over sequence shards and their merge at qwen3-14b's decode shape (B 4, H
+# 40, KV 8, dh 128, S 4096), timed at pos 2056; then READONLY_STEPS
+# read-only decode steps of the full-width model.
+READONLY_POS = 2056
+SHARDS = 4            # 1024 rows each: shard 3 holds no row below 2056
+READONLY_STEPS = 16
+
+
+def check_readonly_kernels(rows: dict) -> None:
+    """K4 with ``k_new``/``v_new`` (the self term) against its plain
+    version: pos 0 (exactly v_new), 1, a range's edge, 2056 and S, and
+    per-row lengths with a row of 0, bf16 and f32; two calls bitwise equal.
+    Its partials mode on SHARDS shards (row slices of the cache, the self
+    term on shard 0, shard 3 empty: m -1e30, l 0) against the plain
+    partials, and the merge against the plain version of the whole.  Timed:
+    the self-term launch beside the scalar launch at READONLY_POS, its plain
+    version, SDPA over the cache with the self key appended, and the four
+    partial launches with the merge; each against the bytes it must move."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd, ref
+    from repro_torch.models.attention import EMPTY_M, merge_partials
+
+    b, h, kv, dh, s = 4, 40, 8, 128, 4096
+    step = s // SHARDS
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def held(out, want, what) -> float:
+        err, excess = flash_decode_error(out, want)
+        ensure(excess <= 0, f"flash_decode {what}: max err {err}, {excess} over "
+               f"(rtol, atol) {FD_TOL[want.dtype]}")
+        return err
+
+    def partials(q, k, v, pos, kn, vn, lens=None):
+        return [fd.flash_decode_partials(q, k[:, lo:lo + step], v[:, lo:lo + step],
+                                         min(max(pos - lo, 0), step), lens, start=lo,
+                                         **(dict(k_new=kn, v_new=vn) if lo == 0 else {}))
+                for lo in range(0, s, step)]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = rand(b, h, dh, dtype=dtype), rand(b, s, kv, dh, dtype=dtype), \
+            rand(b, s, kv, dh, dtype=dtype)
+        kn, vn = rand(b, kv, dh, dtype=dtype), rand(b, kv, dh, dtype=dtype)
+        worst = 0.0
+        r = fd.plan_for(q, k, READONLY_POS).range_len
+        for pos in (0, 1, r, r + 1, READONLY_POS, s):
+            out = fd.flash_decode(q, k, v, pos, k_new=kn, v_new=vn)
+            worst = max(worst, held(out, ref.flash_decode_ref(q, k, v, pos, kn, vn),
+                                    f"self term {dtype} pos {pos}"))
+            ensure(torch.equal(out, fd.flash_decode(q, k, v, pos, k_new=kn, v_new=vn)),
+                   f"self term {dtype} pos {pos}: two calls differ")
+        ensure(torch.equal(fd.flash_decode(q, k, v, 0, k_new=kn, v_new=vn),
+                           vn.repeat_interleave(h // kv, dim=1)), "pos 0 is not v_new")
+        lengths = (READONLY_POS, 1031, 17, 0)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        worst = max(worst, held(fd.flash_decode(q, k, v, max(lengths), lens, kn, vn),
+                                ref.flash_decode_ref(q, k, v, lens, kn, vn),
+                                f"self term {dtype} lengths {lengths}"))
+        for pos, ln in ((READONLY_POS, None), (max(lengths), lens)):
+            got = partials(q, k, v, pos, kn, vn, ln)
+            for i, lo in enumerate(range(0, s, step)):
+                want = ref.flash_decode_partials_ref(
+                    q, k[:, lo:lo + step], v[:, lo:lo + step], min(max(pos - lo, 0), step), ln,
+                    start=lo, **(dict(k_new=kn, v_new=vn) if lo == 0 else {}))
+                gm, wm = got[i][1], want[1]
+                ensure(bool(torch.where(wm == EMPTY_M, gm == EMPTY_M,
+                                        (gm - wm).abs() <= 1e-5 * wm.abs() + 1e-5).all()),
+                       f"partials {dtype} shard {i}: m")
+                ensure(torch.allclose(got[i][2], want[2], rtol=1e-5, atol=1e-5),
+                       f"partials {dtype} shard {i}: l")
+                ensure(torch.allclose(got[i][0], want[0], rtol=1e-5, atol=1e-4),
+                       f"partials {dtype} shard {i}: acc")
+            ensure(bool((got[-1][1] == EMPTY_M).all()) and not bool(got[-1][2].any()),
+                   f"partials {dtype}: shard {SHARDS - 1} is not empty")
+            worst = max(worst, held(merge_partials(got, dtype), ref.flash_decode_ref(
+                q, k, v, pos if ln is None else ln, kn, vn), f"merge of {SHARDS} {dtype}"))
+        say(f"[kernels] flash_decode self term {dtype}: pos 0 (v_new exactly), 1, {r}, {r + 1}, "
+            f"{READONLY_POS}, {s} and lengths {list(lengths)}; partials on {SHARDS} shards of "
+            f"{step} rows (shard {SHARDS - 1} empty) and their merge; max abs err {worst:.3g}; "
+            "two calls bitwise equal")
+    q, k, v = rand(b, h, dh, dtype=torch.bfloat16), rand(b, s, kv, dh, dtype=torch.bfloat16), \
+        rand(b, s, kv, dh, dtype=torch.bfloat16)
+    kn, vn = rand(b, kv, dh, dtype=torch.bfloat16), rand(b, kv, dh, dtype=torch.bfloat16)
+    es, pos = q.element_size(), READONLY_POS
+    # K and V: the pos cache rows and the self row, each read once; q read, out written
+    b_ms, b_by = bound(2 * b * (pos + 1) * kv * dh * es + 2 * q.numel() * es,
+                       4.0 * b * h * (pos + 1) * dh, q.dtype)
+    kc = torch.cat([k[:, :pos], kn[:, None]], dim=1).transpose(1, 2).contiguous()
+    vc = torch.cat([v[:, :pos], vn[:, None]], dim=1).transpose(1, 2).contiguous()
+    t = dict(
+        self_ms=device_time_ms(lambda: fd.flash_decode(q, k, v, pos, k_new=kn, v_new=vn), 100),
+        self_scalar_ms=device_time_ms(lambda: fd.flash_decode(q, k, v, pos), 100),
+        self_plain_ms=device_time_ms(lambda: ref.flash_decode_ref(q, k, v, pos, kn, vn), 20),
+        self_library_ms=device_time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kc, vc, enable_gqa=True), 100),
+        self_bound_ms=b_ms, self_bound_by=b_by,
+        partials_launches_ms=device_time_ms(lambda: partials(q, k, v, pos, kn, vn), 100),
+        partials_plain_ms=device_time_ms(lambda: merge_partials(
+            [ref.flash_decode_partials_ref(q, k[:, lo:lo + step], v[:, lo:lo + step],
+                                           min(max(pos - lo, 0), step), start=lo,
+                                           **(dict(k_new=kn, v_new=vn) if lo == 0 else {}))
+             for lo in range(0, s, step)], q.dtype), 20),
+        partials_bound_ms=b_ms, partials_bound_by=b_by,
+        self_shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, pos {pos} + the self key; "
+                   f"partials on {SHARDS} shards of {step} rows")
+    # The merge's ~40 small launches outpace device_time_ms's hold on the
+    # stream: the partials with their merge are timed from the profiler.
+    tr = traced(lambda: merge_partials(partials(q, k, v, pos, kn, vn), q.dtype), 20)
+    t["partials_ms"] = tr["device_ms"]
+    t["partials_wall_ms"] = tr["wall_ms"]
+    t["partials_by_class_ms"] = tr["by_class_ms"]
+    t["partials_runtime_per_call"] = tr["runtime_per_call"]
+    say(f"[kernels] flash_decode with the self term at pos {pos}: {t['self_ms']:.4f} ms a call "
+        f"(the scalar launch at pos {pos}: {t['self_scalar_ms']:.4f} ms), SDPA over the cache "
+        f"with the self key appended {t['self_library_ms']:.4f} ms, plain "
+        f"{t['self_plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {SHARDS} partial launches "
+        f"and the merge {t['partials_ms']:.4f} ms device in {tr['wall_ms']:.4f} ms wall "
+        f"(traced; by class {tr['by_class_ms']}, runtime calls {tr['runtime_per_call']}), the "
+        f"launches alone {t['partials_launches_ms']:.4f} ms (plain, with the merge: "
+        f"{t['partials_plain_ms']:.4f} ms)")
+    rows.update(t)
+    torch.cuda.empty_cache()
+
+
+def check_readonly_decode(model) -> tuple[int, dict]:
+    """``decode_step(update_cache=False)`` on ``model`` at full width: 4
+    slots after 2048-token prompts, READONLY_STEPS greedy steps, each beside
+    the writing step on its own copy of the same cache.  After each
+    read-only step every tensor of its input cache is bitwise what it was
+    (held against a shadow copy); the caller then lands the step's
+    ``kf``/``vf`` fragments at ``pos``.  The first period's fragments are
+    bitwise the rows the writing step writes (the same projections and
+    RoPE).  The two steps' logits differ only by K4's order of summation
+    (the self key in range 0 against the last range), which 40 random bf16
+    layers amplify: each row is held within twice what a writing step's row
+    differs from itself decoded alone at batch 1, or BF16_ROW if more, and
+    the greedy tokens are equal except in rows whose top-2 gap is under that
+    tolerance.  Then both steps on the host clock and the device (medians).
+    Returns (K4's calls in the READONLY_STEPS steps, the walls)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, prefill
+
+    cfg = model.cfg
+    b, s = 4, 2048
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    logits, cache = prefill(model, prompt, cache_len=s + READONLY_STEPS)
+    writing = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+    shadow = {k: v.clone() for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    attn = [i for i, blk in enumerate(cfg.block_pattern) if blk == "attn"]
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+    def rel(got, want) -> float:
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    lw0, _ = decode_step(model, tok, {**{k: v.clone() for k, v in shadow.items()}, "pos": s})
+    baseline = max(rel(lw0[row], decode_step(model, tok[row:row + 1], {
+        **{k: v[:, row:row + 1].clone() for k, v in shadow.items()}, "pos": s})[0][0])
+        for row in range(b))
+    tol = max(2 * baseline, BF16_ROW)
+    del lw0
+    worst, flipped, calls = 0.0, 0, 0
+    for step in range(READONLY_STEPS):
+        pos = s + step
+        before = build.LAUNCHES["flash_decode"]
+        lr, out = decode_step(model, tok, cache, update_cache=False)
+        calls += build.LAUNCHES["flash_decode"] - before
+        ensure(out["pos"] == pos + 1 and cache["pos"] == pos, ("pos", out["pos"], cache["pos"]))
+        ensure(all(torch.equal(cache[k], v) for k, v in shadow.items()),
+               f"step {step}: the read-only step wrote its input cache")
+        lw, writing = decode_step(model, tok, writing)
+        ensure(bool(torch.isfinite(lr).all()), "a non-finite logit")
+        for i in attn:
+            ensure(torch.equal(out[f"kf{i}"][0, :, 0], writing[f"k{i}"][0, :, pos]) and
+                   torch.equal(out[f"vf{i}"][0, :, 0], writing[f"v{i}"][0, :, pos]),
+                   f"step {step}: the first period's fragments differ from the written rows")
+        top2 = torch.topk(lw[:, -1].float(), 2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1]) / lw.float().abs().amax(dim=(1, 2))).tolist()
+        tr, tw = torch.argmax(lr[:, -1], -1).tolist(), torch.argmax(lw[:, -1], -1).tolist()
+        for row in range(b):
+            err = rel(lr[row], lw[row])
+            worst = max(worst, err)
+            ensure(err <= tol, (cfg.name, "step", step, "row", row, err, "tol", tol))
+            if tr[row] != tw[row]:
+                ensure(gap[row] < tol, ("greedy token differs", step, row, gap[row], tol))
+                flipped += 1
+        for i in attn:   # the caller lands the fragments
+            for key in (f"k{i}", f"v{i}"):
+                cache[key][:, :, pos] = out[key[0] + "f" + key[1:]][:, :, 0]
+                shadow[key][:, :, pos] = out[key[0] + "f" + key[1:]][:, :, 0]
+        cache["pos"] = pos + 1
+        tok = torch.argmax(lw[:, -1], dim=-1)[:, None]
+        del out
+    ensure(calls == cfg.n_attn_layers * READONLY_STEPS, ("flash_decode calls", calls))
+    pos = s + READONLY_STEPS - 1
+    frozen = {**cache, "pos": pos}
+
+    def wall_ms(fn) -> float:
+        times = []
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[TIMED_STEPS // 2]
+
+    def ro():
+        decode_step(model, tok, dict(frozen), update_cache=False)
+
+    def wr():
+        decode_step(model, tok, {**writing, "pos": pos})
+
+    tro, twr = traced(ro, 3), traced(wr, 3)
+    walls = dict(readonly_wall_ms=wall_ms(ro), writing_wall_ms=wall_ms(wr),
+                 readonly_device_ms=tro["device_ms"], writing_device_ms=twr["device_ms"],
+                 readonly_traced_wall_ms=tro["wall_ms"], writing_traced_wall_ms=twr["wall_ms"])
+    say(f"[trace] {cfg.name} read-only step: {tro['device_ms']:.2f} ms device in "
+        f"{tro['wall_ms']:.2f} ms wall, by class {tro['by_class_ms']}, syncs "
+        f"{tro['syncs_per_call']}; writing step: {twr['device_ms']:.2f} ms device in "
+        f"{twr['wall_ms']:.2f} ms wall, by class {twr['by_class_ms']}, syncs "
+        f"{twr['syncs_per_call']}")
+    say(f"[serve] {cfg.name} read-only decode (B {b}, prompts of {s}, {READONLY_STEPS} steps): "
+        f"the input cache bitwise unchanged after every step, the first period's fragments "
+        f"bitwise the writing step's rows; logits within {worst:.4f} x max|logit| of the "
+        f"writing step's (held at {tol:.4f}; a writing step's rows against themselves alone: "
+        f"{baseline:.4f}); {flipped} greedy tokens differ, each in a row with a top-2 gap under "
+        f"the tolerance; a read-only step {walls['readonly_wall_ms']:.2f} ms wall, "
+        f"{walls['readonly_device_ms']:.2f} ms device; a writing step "
+        f"{walls['writing_wall_ms']:.2f} ms wall, {walls['writing_device_ms']:.2f} ms device "
+        f"(walls: medians of {TIMED_STEPS} on the host clock; device: traced, 3 steps); "
+        f"{calls} K4 calls")
+    del cache, writing, shadow, frozen
+    return calls, walls
+
+
+DRYRUN_ARGS = ("--arch", "qwen3-14b", "--shape", "decode_32k", "--mesh", "both")
+
+
+def phase_dryrun() -> None:
+    """Phase 12c, after every timed phase (it would share the host with
+    them): the dry run of qwen3-14b's decode_32k cell on both meshes as a
+    subprocess on this machine's CPU (meta tensors, a fake process group of
+    512 ranks; nothing runs on the card).  It must end in 0 with both cells
+    ok."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS, "--out",
+         os.path.join(ROOT, "build", "dryrun")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT,
+        timeout=600)
+    out = proc.stdout
+    lines = [ln for ln in out.splitlines() if ln.startswith("qwen3-14b")]
+    for ln in lines:
+        say(f"[dryrun] {ln}")
+    ensure(proc.returncode == 0 and len(lines) == 2 and all(": OK " in ln for ln in lines),
+           f"the dry run ended {proc.returncode}: {out[-2000:]}")
+    for mesh in ("pod", "multipod"):
+        with open(os.path.join(ROOT, "build", "dryrun", f"qwen3-14b__decode_32k__{mesh}.json")) as f:
+            rec = json.load(f)
+        ensure(rec["status"] == "ok", rec)
+
+
 def mamba_bound(p: dict, b: int, s: int) -> tuple[float, str, float, float]:
     """The mixer's bound for (B, S) tokens: the layer's weights, x, the
     output and the f32 state (read at decode, written always) and the conv
@@ -2231,6 +2513,21 @@ def main(argv=None) -> int:
         return 0
     phase_build()
     lap("build")
+    if (sys.argv[1:] if argv is None else argv) == ["--dryrun"]:
+        # This slice alone: K4's checks, its self term and partials, the
+        # read-only decode at qwen3-14b's width, the dry run.  No kernels
+        # line and no ok line.
+        check_flash_decode({})
+        check_readonly_kernels({})
+        lap("kernels")
+        from repro_torch.models import Model, init_random_
+
+        check_readonly_decode(init_random_(Model(full_config("qwen3-14b"), device="cuda"), 0))
+        free()
+        lap("read-only decode")
+        phase_dryrun()
+        lap("dry run")
+        return 0
     if (sys.argv[1:] if argv is None else argv) == ["--train"]:
         # This slice alone: K4's checks, the per-slot decode at qwen3-14b's
         # width, phase 12.  No kernels line and no ok line.
@@ -2248,6 +2545,7 @@ def main(argv=None) -> int:
     rows: dict = {}
     check_kv_pack(rows)
     check_flash_decode(rows)
+    check_readonly_kernels(rows["flash_decode"])
     check_netkv_score(rows)
     check_rwkv_scan(rows)
     lap("kernels")
@@ -2259,6 +2557,9 @@ def main(argv=None) -> int:
     launches, cluster, prompts = phase_serve(full_config("qwen3-14b"))
     phase_trace(cluster, prompts)
     launches["flash_decode"] += check_slot_decode(cluster.model)
+    calls, walls = check_readonly_decode(cluster.model)
+    launches["flash_decode"] += calls
+    rows["flash_decode"].update(walls)
     del cluster
     free()
     rwkv_launches, cluster, prompts = phase_serve(full_config("rwkv6-3b"))
@@ -2315,6 +2616,8 @@ def main(argv=None) -> int:
     phase_train_smoke()
     phase_train()
     lap("train")
+    phase_dryrun()
+    lap("dry run")
     kernels = []
     for k in KERNELS:
         entry = rows[k]

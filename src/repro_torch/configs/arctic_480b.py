@@ -22,4 +22,6 @@ SMOKE = ModelConfig(
 SPEC = ArchSpec(arch_id="arctic-480b", model=CONFIG, smoke=SMOKE,
                 source="[hf:Snowflake/snowflake-arctic-base; hf]",
                 train_microbatches=16, optimizer="adafactor",
-                train_param_dtype="bfloat16", grad_accum_dtype="bfloat16")
+                serve_fsdp=True, train_param_dtype="bfloat16",
+                grad_accum_dtype="bfloat16",
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

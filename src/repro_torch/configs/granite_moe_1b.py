@@ -19,4 +19,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="granite-moe-1b-a400m", model=CONFIG, smoke=SMOKE,
                 source="[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]",
-                train_microbatches=8)
+                train_microbatches=8,
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

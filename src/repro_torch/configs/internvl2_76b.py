@@ -20,4 +20,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="internvl2-76b", model=CONFIG, smoke=SMOKE,
                 source="[arXiv:2404.16821; unverified]",
-                train_microbatches=16)
+                train_microbatches=16, serve_fsdp=True, decode_cache_shard="seq",
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

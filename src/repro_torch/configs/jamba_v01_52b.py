@@ -32,4 +32,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="jamba-v0.1-52b", model=CONFIG, smoke=SMOKE,
                 source="[arXiv:2403.19887; hf]",
-                train_microbatches=16, optimizer="adafactor")
+                train_microbatches=16, optimizer="adafactor",
+                shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"))

@@ -15,4 +15,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="llama3-70b", model=CONFIG, smoke=SMOKE,
                 source="[arXiv:2407.21783; hf]",
-                train_microbatches=16)
+                train_microbatches=16, serve_fsdp=True, decode_cache_shard="seq",
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

@@ -14,4 +14,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="phi3-medium-14b", model=CONFIG, smoke=SMOKE,
                 source="[arXiv:2404.14219; unverified]",
-                train_microbatches=8)
+                train_microbatches=8,
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

@@ -14,4 +14,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="qwen3-14b", model=CONFIG, smoke=SMOKE,
                 source="[hf:Qwen/Qwen3-8B; hf]",
-                train_microbatches=8)
+                train_microbatches=8,
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

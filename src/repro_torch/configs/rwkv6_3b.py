@@ -21,4 +21,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="rwkv6-3b", model=CONFIG, smoke=SMOKE,
                 source="[arXiv:2404.05892; hf]",
-                train_microbatches=4)
+                train_microbatches=4,
+                shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"))

@@ -14,4 +14,5 @@ SMOKE = ModelConfig(
 )
 SPEC = ArchSpec(arch_id="smollm-135m", model=CONFIG, smoke=SMOKE,
                 source="[hf:HuggingFaceTB/SmolLM-135M; hf]",
-                train_microbatches=4)
+                train_microbatches=4,
+                skip_notes={"long_500k": "pure full attention: 500k decode skipped (DESIGN §4)"})

@@ -53,6 +53,15 @@
 // CUDA cores (the tensor cores' f32 inputs are TF32, which would not hold
 // atol 2e-5): LG lanes a key row with shuffles for (1), one thread a (row,
 // 16-byte chunk) and KS key subsets for (3).
+// Two more modes serve the read-only (paged) decode of
+// repro/models/attention.py::decode_attention(k_new=, v_new=) and
+// ::seq_sharded_decode_attention.  A self term (k_new, v_new: the current
+// token's key and value, (B, KV, dh)) is one more key row, staged by range 0
+// of each (batch, KV head) after its cache rows, in the same softmax; with
+// it pos = 0 (an empty cache) is legal and gives v_new.  Partials mode
+// returns the merged (acc, m, l) of the launch unnormalised, in f32, for a
+// merge across sequence shards; `start` is the shard's first row, taken off
+// the per-row lengths.
 // Measured (chip_smoke.py, H100 80GB HBM3, 700 W) at the qwen3-14b shape
 // above: 0.0207 ms a call, both kernels, against 0.1648 ms with one block
 // per (batch, KV head) and 0.0416 ms for SDPA.
@@ -208,13 +217,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ out,
                           float* __restrict__ part, const int* __restrict__ lens,
-                          int n_heads, int n_kv, int seq, int pos, int range, float scale) {
+                          const T* __restrict__ k_new, const T* __restrict__ v_new,
+                          int n_heads, int n_kv, int seq, int pos, int start, int range,
+                          bool partial, float scale) {
   constexpr int E = Vec<T>::E;
   constexpr int DH = C * E;
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int g_heads = n_heads / n_kv;
-  const Layout lay(range, C, E, g_heads, kMma<T>);
+  const Layout lay(range + (k_new != nullptr), C, E, g_heads, kMma<T>);
   unsigned char* k_s = smem;
   unsigned char* v_s = smem + lay.v;
   unsigned char* q_s = smem + lay.q;
@@ -227,17 +238,23 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.y;
   const int n_split = gridDim.y;
   const int t0 = split * range;
-  // Keys of this range: >= 1 for a scalar pos; with per-row lengths, <= 0
-  // where the row ends before the range starts (a length is clamped to pos).
-  const int len = lens == nullptr ? pos : min(lens[b], pos);
-  const int n = min(range, len - t0);
+  // Cache keys of this range: >= 1 for a scalar pos; with per-row lengths,
+  // <= 0 where the row ends before the range starts (a length, less the
+  // shard's first row `start`, is clamped to pos).  Range 0 of a launch with
+  // a self term stages the current token's key and value as one more row.
+  const int self_here = (k_new != nullptr && split == 0) ? 1 : 0;
+  const int len = lens == nullptr ? pos : min(lens[b] - start, pos);
+  const int n_cache = self_here ? max(0, min(range, len - t0)) : min(range, len - t0);
+  const int n = n_cache + self_here;
+  // Partials go to `part`: always in partials mode, else when ranges merge.
+  const bool to_part = partial || n_split > 1;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const long long bh0 = static_cast<long long>(b) * n_heads + kh * g_heads;
   const long long bh_total = static_cast<long long>(gridDim.x) * g_heads;
   if (n <= 0) {  // uniform over the block: every thread leaves here
-    if (n_split == 1) {  // a row of length 0 (outside the contract): zeros
+    if (!to_part) {  // a row of length 0 without a self term (outside the contract): zeros
       for (int o = tid; o < g_heads * DH; o += kThreads) {
         out[bh0 * DH + o] = Vec<T>::from_float(0.0f);
       }
@@ -258,12 +275,23 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // (0) the range's key rows, then its value rows, all in flight.
   const long long row = static_cast<long long>(n_kv) * DH;  // elements between keys
   const long long head0 = (static_cast<long long>(b) * seq + t0) * row + kh * DH;
-  for (int i = tid; i < n * C; i += kThreads) {
+  const long long self0 = (static_cast<long long>(b) * n_kv + kh) * DH;
+  for (int i = tid; i < n_cache * C; i += kThreads) {
     cp_async16(k_s + tile_chunk<T, C>(i / C, i % C) * 16, k + head0 + (i / C) * row + (i % C) * E);
   }
+  if (self_here) {
+    for (int c = tid; c < C; c += kThreads) {
+      cp_async16(k_s + tile_chunk<T, C>(n_cache, c) * 16, k_new + self0 + c * E);
+    }
+  }
   cp_async_commit();
-  for (int i = tid; i < n * C; i += kThreads) {
+  for (int i = tid; i < n_cache * C; i += kThreads) {
     cp_async16(v_s + tile_chunk<T, C>(i / C, i % C) * 16, v + head0 + (i / C) * row + (i % C) * E);
+  }
+  if (self_here) {
+    for (int c = tid; c < C; c += kThreads) {
+      cp_async16(v_s + tile_chunk<T, C>(n_cache, c) * 16, v_new + self0 + c * E);
+    }
   }
   cp_async_commit();
 
@@ -441,7 +469,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int d = (2 * pair + h) * 8 + 2 * tig;
-          if (n_split == 1) {
+          if (!to_part) {
             *reinterpret_cast<__nv_bfloat162*>(out + (bh0 + gid) * DH + d) =
                 __floats2bfloat162_rn(acc[pp][h][0] / l, acc[pp][h][1] / l);
           } else {
@@ -483,25 +511,28 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int o = tid; o < g_heads * DH; o += kThreads) {
       float a = 0.0f;
       for (int ks = 0; ks < n_sub; ++ks) a += red_s[ks * g_heads * DH + o];
-      if (n_split == 1) {
+      if (!to_part) {
         out[bh0 * DH + o] = Vec<T>::from_float(a / fmaxf(l_s[o / DH], 1e-30f));
       } else {
         part[(split * bh_total + bh0) * DH + o] = a;
       }
     }
   }
-  if (n_split > 1 && tid < g_heads) {
+  if (to_part && tid < g_heads) {
     float* ml = part + n_split * bh_total * DH + (split * bh_total + bh0 + tid) * 2;
     ml[0] = m_s[tid];
     ml[1] = l_s[tid];
   }
 }
 
-// One block per (batch, query head): merge the n_split partials in range order.
+// One block per (batch, query head): merge the n_split partials in range
+// order.  In partials mode (out_part set) the merged partial is written
+// instead, unnormalised: acc, then the (m, l) pairs, the layout of `part`.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 flash_decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                            int n_split, int bh_total, int d_head) {
+                            float* __restrict__ out_part, int n_split, int bh_total,
+                            int d_head) {
   const int bh = blockIdx.x;
   const float* ml = part + static_cast<long long>(n_split) * bh_total * d_head;
   float mx = kNegInf;
@@ -513,6 +544,10 @@ flash_decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
     const float* x = ml + (static_cast<long long>(s) * bh_total + bh) * 2;
     l += expf(x[0] - mx) * x[1];
   }
+  if (out_part != nullptr && threadIdx.x == 0) {
+    out_part[static_cast<long long>(bh_total) * d_head + bh * 2] = mx;
+    out_part[static_cast<long long>(bh_total) * d_head + bh * 2 + 1] = l;
+  }
   l = fmaxf(l, 1e-30f);
   for (int d = threadIdx.x; d < d_head; d += kCombineThreads) {
     float a = 0.0f;
@@ -520,15 +555,20 @@ flash_decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
       const long long r = static_cast<long long>(s) * bh_total + bh;
       a += expf(ml[r * 2] - mx) * part[r * d_head + d];
     }
-    out[static_cast<long long>(bh) * d_head + d] = Vec<T>::from_float(a / l);
+    if (out_part != nullptr) {
+      out_part[static_cast<long long>(bh) * d_head + d] = a;
+    } else {
+      out[static_cast<long long>(bh) * d_head + d] = Vec<T>::from_float(a / l);
+    }
   }
 }
 
 template <typename T, int C>
 int launch(const void* q, const void* k, const void* v, void* out, void* part, const int* lens,
-           int batch, int n_heads, int n_kv, int seq, int d_head, int pos, int n_split, int range,
-           float scale, cudaStream_t stream) {
-  const Layout lay(range, C, Vec<T>::E, n_heads / n_kv, kMma<T>);
+           const void* k_new, const void* v_new, int batch, int n_heads, int n_kv, int seq,
+           int d_head, int pos, int start, int n_split, int range, bool partial, float scale,
+           cudaStream_t stream) {
+  const Layout lay(range + (k_new != nullptr), C, Vec<T>::E, n_heads / n_kv, kMma<T>);
   if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   if (lay.total > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -537,25 +577,29 @@ int launch(const void* q, const void* k, const void* v, void* out, void* part, c
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
   const dim3 grid(batch * n_kv, n_split);
+  // In partials mode `out` is the f32 partial; one range writes it directly.
+  float* split_part = static_cast<float*>(partial && n_split == 1 ? out : part);
   flash_decode_split_kernel<T, C><<<grid, kThreads, lay.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(part), lens, n_heads, n_kv, seq, pos, range,
-      scale);
+      static_cast<T*>(out), split_part, lens, static_cast<const T*>(k_new),
+      static_cast<const T*>(v_new), n_heads, n_kv, seq, pos, start, range, partial, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   flash_decode_combine_kernel<T><<<batch * n_heads, kCombineThreads, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(out), n_split, batch * n_heads, d_head);
+      static_cast<const float*>(part), static_cast<T*>(out),
+      partial ? static_cast<float*>(out) : nullptr, n_split, batch * n_heads, d_head);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_for_dtype(const void* q, const void* k, const void* v, void* out, void* part,
-                     const int* lens, int batch, int n_heads, int n_kv, int seq, int d_head,
-                     int pos, int n_split, int range, float scale, cudaStream_t stream) {
-#define REPRO_FD_CASE(CC)                                                                  \
-  case CC:                                                                                 \
-    return launch<T, CC>(q, k, v, out, part, lens, batch, n_heads, n_kv, seq, d_head, pos, \
-                         n_split, range, scale, stream);
+                     const int* lens, const void* k_new, const void* v_new, int batch,
+                     int n_heads, int n_kv, int seq, int d_head, int pos, int start, int n_split,
+                     int range, bool partial, float scale, cudaStream_t stream) {
+#define REPRO_FD_CASE(CC)                                                                 \
+  case CC:                                                                                \
+    return launch<T, CC>(q, k, v, out, part, lens, k_new, v_new, batch, n_heads, n_kv, seq, \
+                         d_head, pos, start, n_split, range, partial, scale, stream);
   switch (d_head / Vec<T>::E) {
     REPRO_FD_CASE(2)
     REPRO_FD_CASE(4)
@@ -571,32 +615,46 @@ int launch_for_dtype(const void* q, const void* k, const void* v, void* out, voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q (B, H, dh); k, v (B, S, KV, dh);
-// out (B, H, dh); part: n_split * B * H * (dh + 2) f32 of scratch when
+// dtype: 0 = float32, 1 = bfloat16.  q (B, H, dh); k, v (B, S, KV, dh) with
+// `seq` rows between batch rows (S, or a larger cache's S where k and v are
+// a slice of its rows, a sequence shard); out (B, H, dh); part: n_split * B * H * (dh + 2) f32 of scratch when
 // n_split > 1 (partial accumulators, then (m, l) pairs); lens: nullptr, or
-// (B,) int32 per-row lengths in [1, pos] on the device (pos their maximum).
+// (B,) int32 per-row lengths on the device, row b's keys [0, lens[b] -
+// start) clamped to [0, pos] (pos their maximum); k_new, v_new: nullptr, or
+// the current token's key and value (B, KV, dh), a self term folded into the
+// softmax of range 0.  partial = 1: out is the f32 partial (B * H * dh
+// unnormalised accumulators, then B * H (m, l) pairs; an empty row gives
+// m = -1e30, l = 0), for a merge across sequence shards.
 // The keys [0, pos) are cut into n_split ranges of `range` keys, the last one
 // shorter and none empty (a row shorter than pos leaves its later ranges
-// empty).  The wrapper checks shapes, G <= 8, 1 <= pos <= S, and that dh is
+// empty); pos = 0 (one range) is taken with a self term or in partials
+// mode.  The wrapper checks shapes, G <= 8, 0 <= pos <= S, and that dh is
 // 2..64 16-byte chunks, a power of two.  Launches the split kernel, and the
 // combine kernel when n_split > 1; returns the first CUDA error.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   void* out, void* part, const int* lens, int batch, int n_heads,
-                                   int n_kv, int seq, int d_head, int pos, int n_split,
-                                   int range, float scale, int dtype, void* stream) {
-  if (n_split < 1 || n_split > 65535 || range < 1 ||
-      static_cast<long long>(n_split - 1) * range >= pos ||
-      static_cast<long long>(n_split) * range < pos || (n_split > 1 && part == nullptr)) {
+                                   void* out, void* part, const int* lens, const void* k_new,
+                                   const void* v_new, int batch, int n_heads, int n_kv, int seq,
+                                   int d_head, int pos, int start, int n_split, int range,
+                                   int partial, float scale, int dtype, void* stream) {
+  const bool empty_ok = k_new != nullptr || partial != 0;
+  const bool split_ok =
+      pos == 0 ? (empty_ok && n_split == 1)
+               : (static_cast<long long>(n_split - 1) * range < pos &&
+                  static_cast<long long>(n_split) * range >= pos);
+  if (n_split < 1 || n_split > 65535 || range < 1 || pos < 0 || !split_ok ||
+      (n_split > 1 && part == nullptr) || ((k_new == nullptr) != (v_new == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_for_dtype<float>(q, k, v, out, part, lens, batch, n_heads, n_kv, seq,
-                                   d_head, pos, n_split, range, scale, s);
+    return launch_for_dtype<float>(q, k, v, out, part, lens, k_new, v_new, batch, n_heads, n_kv,
+                                   seq, d_head, pos, start, n_split, range, partial != 0, scale,
+                                   s);
   }
   if (dtype == 1) {
-    return launch_for_dtype<__nv_bfloat16>(q, k, v, out, part, lens, batch, n_heads, n_kv,
-                                           seq, d_head, pos, n_split, range, scale, s);
+    return launch_for_dtype<__nv_bfloat16>(q, k, v, out, part, lens, k_new, v_new, batch,
+                                           n_heads, n_kv, seq, d_head, pos, start, n_split,
+                                           range, partial != 0, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

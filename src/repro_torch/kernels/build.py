@@ -57,13 +57,14 @@ def reset_launches() -> None:
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Raises when a CUDA device is asked for and
-    there is none: an entry point never carries on on the CPU unasked."""
+    there is none: an entry point never carries on on the CPU unasked.  The
+    meta device (shapes without storage) is taken for the dry run."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -158,9 +159,11 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def require(t: torch.Tensor, what: str, *, dtype=None, ndim=None,
-            device: torch.device | None = None, align: int = 16) -> None:
-    """Wrapper-side argument checks: a CUDA tensor, contiguous, of the
-    expected dtype/rank/device, aligned to ``align`` bytes."""
+            device: torch.device | None = None, align: int = 16,
+            contiguous: bool = True) -> None:
+    """Wrapper-side argument checks: a CUDA tensor, contiguous (unless the
+    caller checks its strides itself), of the expected dtype/rank/device,
+    aligned to ``align`` bytes."""
     if t.device.type != "cuda":
         raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -169,7 +172,7 @@ def require(t: torch.Tensor, what: str, *, dtype=None, ndim=None,
         raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{what} must have {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{what} must be {align}-byte aligned")

@@ -3,6 +3,10 @@
 GQA one-token attention of q (B, H, dh) over k/v caches (B, S, KV, dh) for
 the first ``pos`` positions, or row b over its first ``lengths[b]`` (the
 per-slot decode), with an f32 online softmax; the output is in q's dtype.
+With ``k_new``/``v_new`` (B, KV, dh) the current token's key and value join
+the softmax as one more key (the read-only decode's self term);
+:func:`flash_decode_partials` returns the unnormalised (acc, m, l) of a
+sequence shard instead, for ``models.attention.merge_partials``.
 The kernel splits ``[0, pos)`` into contiguous ranges, one block a (batch,
 KV head, range), and a second kernel merges the ranges in order;
 :func:`split_plan` chooses the ranges (over the longest row).  CUDA tensors
@@ -70,64 +74,122 @@ def _lib():
     lib = build.library("flash_decode")
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 6 + [_I] * 8 + [_F, _I, _VP]
+        fn.argtypes = [_VP] * 8 + [_I] * 10 + [_F, _I, _VP]
         fn.restype = _I
     return lib
 
 
 def plan_for(q: torch.Tensor, k_cache: torch.Tensor, pos: int) -> SplitPlan:
-    """The split :func:`flash_decode` launches for these tensors."""
+    """The split :func:`flash_decode` launches for these tensors; ``pos = 0``
+    (an empty cache: the self term alone, or an empty partial) is one range."""
+    if int(pos) == 0:
+        return SplitPlan(1, 1)
     b, _, dh = q.shape
     return split_plan(b, k_cache.shape[2], int(pos), build.sm_count(q.device),
                       dh * q.element_size())
 
 
-def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: int, lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """q (B, H, dh); k/v (B, S, KV, dh); ``pos`` valid keys (1 <= pos <= S).
-
-    ``lengths``, a (B,) int32 tensor on q's device, gives each row its own
-    number of valid keys, each in [1, pos], with ``pos`` their maximum (the
-    caller knows it on the host: nothing is read back here).  A length past
-    ``pos`` is cut to ``pos``; a length below 1 gives that row zeros.
-    ``pos = 0`` is left undefined by the reference and never reached by
-    serving, so it raises here."""
+def _launch(q, k_cache, v_cache, pos, lengths, k_new, v_new, start: int,
+            partial: bool) -> torch.Tensor:
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"flash_decode takes {tuple(DTYPE_CODE)}, got {q.dtype}")
     build.require(q, "q", ndim=3)
-    build.require(k_cache, "k_cache", dtype=q.dtype, ndim=4, device=q.device)
-    build.require(v_cache, "v_cache", dtype=q.dtype, ndim=4, device=q.device)
     b, h, dh = q.shape
     _, s, kv, _ = k_cache.shape
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != dh:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
+    # A cache may be a slice of rows of a larger one (a sequence shard,
+    # k[:, lo:hi]): its rows contiguous, a batch stride of whole rows.
+    row = kv * dh
+    for t, what in ((k_cache, "k_cache"), (v_cache, "v_cache")):
+        build.require(t, what, dtype=q.dtype, ndim=4, device=q.device, contiguous=False)
+        if (t.stride()[1:] != (row, dh, 1) or t.stride(0) % row or t.stride(0) < s * row
+                or (b > 1 and t.stride(0) != k_cache.stride(0))):
+            raise ValueError(f"{what} must have contiguous rows, got strides {t.stride()}")
+    seq_stride = k_cache.stride(0) // row if b > 1 else s
     if h % kv or h // kv > MAX_GROUP:
         raise ValueError(f"{h} heads over {kv} KV heads: need H % KV == 0 and "
                          f"H / KV <= {MAX_GROUP}")
     chunks = dh * q.element_size() // 16
     if dh * q.element_size() % 16 or chunks not in CHUNKS:
         raise ValueError(f"d_head {dh} in {q.dtype} is not 2..64 16-byte chunks (a power of two)")
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new come together")
+    if k_new is not None:
+        for t, what in ((k_new, "k_new"), (v_new, "v_new")):
+            build.require(t, what, dtype=q.dtype, ndim=3, device=q.device)
+            if tuple(t.shape) != (b, kv, dh):
+                raise ValueError(f"{what} must be {(b, kv, dh)}, got {tuple(t.shape)}")
     pos = int(pos)
-    if not 1 <= pos <= s:
-        raise ValueError(f"pos must lie in [1, {s}], got {pos}")
+    low = 0 if k_new is not None or partial else 1
+    if not low <= pos <= s:
+        raise ValueError(f"pos must lie in [{low}, {s}], got {pos}")
     if lengths is not None:
         build.require(lengths, "lengths", dtype=torch.int32, ndim=1, device=q.device, align=4)
         if lengths.shape[0] != b:
             raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
     plan = plan_for(q, k_cache, pos)
-    out = torch.empty_like(q)
+    if partial:   # acc (B, H, dh), then the (m, l) pairs, all f32
+        out = torch.empty(b * h * (dh + 2), dtype=torch.float32, device=q.device)
+    else:
+        out = torch.empty_like(q)
     # The ranges' partial (acc, m, l) in f32, merged by the second kernel.
     part = None
     if plan.n_split > 1:
         part = torch.empty(plan.n_split * b * h * (dh + 2), dtype=torch.float32,
                            device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _lib()
     rc = lib.flash_decode_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                                 out.data_ptr(), None if part is None else part.data_ptr(),
-                                 None if lengths is None else lengths.data_ptr(),
-                                 b, h, kv, s, dh, pos, plan.n_split, plan.range_len,
-                                 dh ** -0.5, DTYPE_CODE[q.dtype], build.stream_ptr(q))
+                                 out.data_ptr(), ptr(part), ptr(lengths), ptr(k_new), ptr(v_new),
+                                 b, h, kv, seq_stride, dh, pos, int(start), plan.n_split,
+                                 plan.range_len,
+                                 int(partial), dh ** -0.5, DTYPE_CODE[q.dtype],
+                                 build.stream_ptr(q))
     build.check(lib, rc, "flash_decode")
     build.LAUNCHES["flash_decode"] += 1
     return out
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: int, lengths: torch.Tensor | None = None,
+                 k_new: torch.Tensor | None = None,
+                 v_new: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B, H, dh); k/v (B, S, KV, dh); ``pos`` valid keys of the cache:
+    in [1, S] without a self term, in [0, S] with one (below).
+
+    ``lengths``, a (B,) int32 tensor on q's device, gives each row its own
+    number of valid keys, each at most ``pos``, with ``pos`` their maximum
+    (the caller knows it on the host: nothing is read back here).  A length
+    past ``pos`` is cut to ``pos``.  Without a self term a length below 1
+    gives that row zeros (the reference leaves it undefined), and ``pos =
+    0`` raises.
+
+    ``k_new``/``v_new`` (B, KV, dh), contiguous: the current token's key
+    and value, one more key of every row (the cache is read, not written).
+    A row with no cache key then attends to its own token alone: its output
+    is its ``v_new``.  A null ``k_new`` is the launch without a self term."""
+    return _launch(q, k_cache, v_cache, pos, lengths, k_new, v_new, 0, False)
+
+
+def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          pos: int, lengths: torch.Tensor | None = None, *, start: int = 0,
+                          k_new: torch.Tensor | None = None,
+                          v_new: torch.Tensor | None = None):
+    """A sequence shard's softmax partial: (acc (B, H, dh), m (B, H), l
+    (B, H)), all f32, with acc = sum_j exp(s_j - m) v_j and l = sum_j
+    exp(s_j - m) over the shard's valid keys (and the self term, where
+    ``k_new`` is given: on shard 0 only).  k/v (B, S_loc, KV, dh) are the
+    shard's rows ``[start, start + S_loc)``; ``pos`` (0 <= pos <= S_loc)
+    the longest row's valid local keys, ``lengths`` the rows' global
+    lengths, from which ``start`` is taken.  A row with no key gives m =
+    -1e30, l = 0 and acc = 0, which the merge weighs 0."""
+    b, h, dh = q.shape
+    flat = _launch(q, k_cache, v_cache, pos, lengths, k_new, v_new, start, True)
+    acc = flat[:b * h * dh].view(b, h, dh)
+    ml = flat[b * h * dh:].view(b, h, 2)
+    return acc, ml[..., 0], ml[..., 1]

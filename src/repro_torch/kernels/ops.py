@@ -30,16 +30,34 @@ def _no_grad(what: str, *tensors: torch.Tensor) -> None:
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: int, lengths: torch.Tensor | None = None) -> torch.Tensor:
+                 pos: int, lengths: torch.Tensor | None = None,
+                 k_new: torch.Tensor | None = None,
+                 v_new: torch.Tensor | None = None) -> torch.Tensor:
     """K4: one-token attention over the first ``pos`` keys, or row b over
     its first ``lengths[b]`` (a (B,) int32 tensor on q's device, each in
-    [1, pos], ``pos`` their maximum)."""
+    [1, pos], ``pos`` their maximum); with ``k_new``/``v_new`` (B, KV, dh)
+    the current token's key and value as one more key (lengths from 0)."""
     _no_grad("flash_decode", q, k_cache, v_cache)
     if _on_card(q):
         from .flash_decode import flash_decode as kernel
 
-        return kernel(q, k_cache, v_cache, pos, lengths)
-    return ref.flash_decode_ref(q, k_cache, v_cache, pos if lengths is None else lengths)
+        return kernel(q, k_cache, v_cache, pos, lengths, k_new, v_new)
+    return ref.flash_decode_ref(q, k_cache, v_cache, pos if lengths is None else lengths,
+                                k_new, v_new)
+
+
+def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          pos: int, lengths: torch.Tensor | None = None, *, start: int = 0,
+                          k_new: torch.Tensor | None = None,
+                          v_new: torch.Tensor | None = None):
+    """K4 in partials mode: a sequence shard's (acc, m, l) in f32."""
+    _no_grad("flash_decode", q, k_cache, v_cache)
+    if _on_card(q):
+        from .flash_decode import flash_decode_partials as kernel
+
+        return kernel(q, k_cache, v_cache, pos, lengths, start=start, k_new=k_new, v_new=v_new)
+    return ref.flash_decode_partials_ref(q, k_cache, v_cache, pos, lengths, start=start,
+                                         k_new=k_new, v_new=v_new)
 
 
 def kv_pack(pool: torch.Tensor, block_table) -> torch.Tensor:

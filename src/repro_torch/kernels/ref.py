@@ -14,24 +14,66 @@ import torch
 BIG = 3.0e38
 
 
-def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos) -> torch.Tensor:
-    """q: (B, H, dh); k/v: (B, S, KV, dh); pos: the valid length, an int, or
-    a (B,) integer tensor of each row's -> (B, H, dh), computed in f32
-    (``repro/kernels/ref.py::flash_decode_ref``; a vector masks as
-    ``repro/models/attention.py::decode_attention`` does)."""
+def _decode_logits(q, k_cache, pos):
+    """(q grouped (B, KV, G, dh) f32, masked logits (B, KV, G, S) f32)."""
     b, h, dh = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
-    g = h // kv
-    qg = q.reshape(b, kv, g, dh).float()
+    qg = q.reshape(b, kv, h // kv, dh).float()
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * dh ** -0.5
     if isinstance(pos, torch.Tensor):
         pos = pos.to(q.device).reshape(-1, 1, 1, 1)
     mask = torch.arange(s, device=q.device) < pos
-    logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return qg, logits.masked_fill(~mask, float("-inf"))
+
+
+def _with_self(qg, logits, k_new):
+    """The logits with the self term's (B, KV, G, 1) appended last."""
+    if k_new is None:
+        return logits
+    self_logit = torch.einsum("bkgd,bkd->bkg", qg, k_new.float()) * qg.shape[-1] ** -0.5
+    return torch.cat([logits, self_logit[..., None]], dim=-1)
+
+
+def _values(k_cache, v_cache, v_new):
+    v = v_cache.float()
+    return v if v_new is None else torch.cat([v, v_new.float()[:, None]], dim=1)
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos, k_new: torch.Tensor | None = None,
+                     v_new: torch.Tensor | None = None) -> torch.Tensor:
+    """q: (B, H, dh); k/v: (B, S, KV, dh); pos: the valid length, an int, or
+    a (B,) integer tensor of each row's -> (B, H, dh), computed in f32
+    (``repro/kernels/ref.py::flash_decode_ref``; a vector masks as
+    ``repro/models/attention.py::decode_attention`` does).  ``k_new``/
+    ``v_new`` (B, KV, dh): the current token's key and value as one more
+    key in the same softmax (``decode_attention(k_new=, v_new=)``), with
+    which a length of 0 attends to the token alone."""
+    b, h, dh = q.shape
+    qg, logits = _decode_logits(q, k_cache, pos)
+    p = torch.softmax(_with_self(qg, logits, k_new), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, _values(k_cache, v_cache, v_new))
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def flash_decode_partials_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                              pos: int, lengths: torch.Tensor | None = None, *,
+                              start: int = 0, k_new: torch.Tensor | None = None,
+                              v_new: torch.Tensor | None = None):
+    """The plain version of ``flash_decode.flash_decode_partials``: a
+    sequence shard's (acc (B, H, dh), m (B, H), l (B, H)) in f32 over its
+    local rows ``[0, min(pos, lengths - start))`` and the self term where
+    given; a row with no key gives m = -1e30, l = 0, acc = 0."""
+    b, h, dh = q.shape
+    valid = pos if lengths is None else torch.clamp(lengths.to(q.device).long() - start,
+                                                    max=int(pos))
+    qg, logits = _decode_logits(q, k_cache, valid)
+    logits = _with_self(qg, logits, k_new)
+    m = logits.amax(dim=-1)
+    m = torch.where(torch.isinf(m), torch.full_like(m, -1e30), m)
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bkgs,bskd->bkgd", p, _values(k_cache, v_cache, v_new))
+    return acc.reshape(b, h, dh), m.reshape(b, h), p.sum(dim=-1).reshape(b, h)
 
 
 def kv_pack_ref(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,13 @@ and restart.
         --microbatches 4 --lr 1e-3      # full width on the card
 
 The JAX launcher's flags and lines, plus ``--device`` (default: the CUDA
-card; ``--device cpu`` trains on the CPU).  The master parameters are in the
-architecture's ``train_param_dtype`` and the gradients accumulate in its
-``grad_accum_dtype`` (f32 but for arctic-480b's bf16), with its optimizer;
-compute runs in the config's ``compute_dtype`` (bf16) and each period is
-recomputed in the backward pass where the config sets ``remat``.  The
-dry-run lowering of the JAX launcher's docstring is not ported (ROADMAP §1
-item 8).
+card; ``--device cpu`` trains on the CPU).  As in JAX's launcher, the
+master parameters are f32 and the gradients accumulate in f32 for every
+architecture, with its optimizer; the spec's ``train_param_dtype`` and
+``grad_accum_dtype`` (bf16 for arctic-480b) are read only by the dry run
+(``launch/dryrun.py``).  Compute runs in the config's ``compute_dtype``
+(bf16) and each period is recomputed in the backward pass where the config
+sets ``remat``.
 """
 
 from __future__ import annotations
@@ -22,9 +22,10 @@ import argparse
 import os
 import time
 
+import torch
+
 from ..configs import get_spec
 from ..models import Model, init_random_
-from ..models.model import dtype_of
 from ..train import (
     make_optimizer,
     make_train_step,
@@ -54,7 +55,7 @@ def main(argv=None) -> int:
     cfg = spec.smoke if args.smoke else spec.model
     ckpt_dir = args.ckpt_dir or os.path.join("artifacts", "ckpt", args.arch)
     opt = make_optimizer(spec.optimizer, lr=args.lr)
-    model = init_random_(Model(cfg, device=args.device, train_dtype=spec.train_param_dtype),
+    model = init_random_(Model(cfg, device=args.device, train_dtype=torch.float32),
                          args.seed)
     state = opt.init(dict(model.named_parameters()))
     start = 0
@@ -64,8 +65,7 @@ def main(argv=None) -> int:
             start, tree = restored
             state = tree["opt"]
             print(f"resumed from step {start}")
-    step_fn = make_train_step(opt, microbatches=args.microbatches, batch_shards=1,
-                              accum_dtype=dtype_of(spec.grad_accum_dtype))
+    step_fn = make_train_step(opt, microbatches=args.microbatches, batch_shards=1)
     t0 = time.time()
     for i in range(start, args.steps):
         batch = synth_batch(cfg, global_batch=args.batch, seq_len=args.seq,

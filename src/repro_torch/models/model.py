@@ -59,16 +59,23 @@ the tokens.  Attention with H % KV != 0 runs the head-expanded paths of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from types import SimpleNamespace
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ref
 from ..kernels.build import resolve_device
-from .attention import chunked_causal_attention, cross_attention, kernel_decode_attention
+from .attention import (
+    chunked_causal_attention,
+    cross_attention,
+    kernel_decode_attention,
+    seq_sharded_decode_attention,
+)
 from .common import InitSpec, rms_norm, rope_tables, rotate, swiglu
 from .moe import MoEConfig, moe_ffn, moe_param_specs, moe_residual_param_specs, moe_with_residual
 from .rwkv import (
@@ -78,6 +85,16 @@ from .rwkv import (
     rwkv_param_specs,
     rwkv_time_mix,
     rwkv_time_mix_step,
+)
+from .sharding import (
+    constrain,
+    current_mesh,
+    current_rules,
+    fsdp_gather,
+    local_region,
+    merge_dims,
+    recompute_contexts,
+    split_dim,
 )
 from .ssm import D_CONV, D_STATE, mamba_decode_step, mamba_forward, mamba_param_specs
 
@@ -332,18 +349,22 @@ def state_bytes(cfg: ModelConfig, seq_len: int) -> int:
 
 def _slice(node, i: int) -> dict:
     """Period ``i`` of every leaf under ``node`` (a ``ParameterDict`` or a
-    dict), nested as the subtrees."""
-    return {k: _slice(v, i) if isinstance(v, (nn.ParameterDict, dict)) else v[i]
-            for k, v in node.items()}
+    dict), nested as the subtrees; under a mesh that shards weights over
+    FSDP axes, each gathered over them (``sharding.fsdp_gather``)."""
+    return _take(node, i, fsdp_gather())
+
+
+def _take(node, i: int, gather) -> dict:
+    return {k: _take(v, i, gather) if isinstance(v, (nn.ParameterDict, dict))
+            else v[i] if gather is None else gather(v[i]) for k, v in node.items()}
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
-    b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(b, s, h, dh)
-    k = (xn @ p["wk"]).reshape(b, s, kv, dh)
-    v = (xn @ p["wv"]).reshape(b, s, kv, dh)
+    q = split_dim(xn @ p["wq"], -1, (h, dh))
+    k = split_dim(xn @ p["wk"], -1, (kv, dh))
+    v = split_dim(xn @ p["wv"], -1, (kv, dh))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -352,17 +373,16 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
 
 def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, rope, causal: bool):
     """The attention block over a sequence: (its output, k, v)."""
-    b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, *rope)
+    q = constrain(q, "batch", None, "heads", None)
     att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal)
-    return att.reshape(b, s, -1) @ p["wo"], k, v
+    return merge_dims(att, 2) @ p["wo"], k, v
 
 
 def _cross_q(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """The cross block's queries (B, S, H, dh): no RoPE, no q norm."""
-    b, s, _ = x.shape
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    return (xn @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
+    return split_dim(xn @ p["wq"], -1, (cfg.n_heads, cfg.d_head))
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor):
@@ -381,16 +401,19 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
-    return rms_norm(x, model.out_norm, model.cfg.norm_eps) @ model.lm_head
+    gather = fsdp_gather()
+    head = model.lm_head if gather is None else gather(model.lm_head)
+    return constrain(rms_norm(x, model.out_norm, model.cfg.norm_eps) @ head,
+                     "batch", None, "vocab")
 
 
 def _embed_inputs(model: Model, tokens: torch.Tensor, prefix_embeds) -> torch.Tensor:
     """Token embeddings in ``compute_dtype`` (gathered, then cast, as JAX
     does), behind the stub prefix embeddings (B, n, d) if any."""
     x = model.embed[tokens].to(model.cfg.compute_dtype)
-    if prefix_embeds is None:
-        return x
-    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return constrain(x, "batch", None, None)
 
 
 def _cross_kv(model: Model, memory) -> dict:
@@ -401,12 +424,24 @@ def _cross_kv(model: Model, memory) -> dict:
     cfg = model.cfg
     if not cfg.is_enc_dec or memory is None:
         return {}
-    b, se, _ = memory.shape
     mem = memory.to(cfg.compute_dtype)[None]
-    shape = (cfg.n_periods, b, se, cfg.n_kv_heads, cfg.d_head)
-    return {int(name[1:]): ((mem @ p["wk"][:, None]).reshape(shape),
-                            (mem @ p["wv"][:, None]).reshape(shape))
+    # every period's projection at once, (1, B, S_enc, d) @ (P, 1, d, KV*dh);
+    # under a mesh on the local shards: DTensor has no rule for the batched
+    # product of a batch-sharded memory with head-sharded weights
+    proj = local_region(lambda m, w: m @ w[:, None], ((None, "batch", None, None),
+                                                      (None, None, "heads")),
+                        ((None, "batch", None, "heads"),))
+    heads = (cfg.n_kv_heads, cfg.d_head)
+    return {int(name[1:]): (split_dim(proj(mem, p["wk"]), -1, heads),
+                            split_dim(proj(mem, p["wv"]), -1, heads))
             for name, p in model.cross_layers.items()}
+
+
+def _remat_contexts():
+    """checkpoint's (forward, recomputation) contexts: the recomputation runs
+    inside ``torch.autograd.grad``, where the caller's function modes are
+    off, so it enters ``sharding.recompute_under``'s again."""
+    return contextlib.nullcontext(), recompute_contexts()
 
 
 def _backbone(model: Model, x: torch.Tensor, cache: dict | None, cross: dict,
@@ -421,7 +456,7 @@ def _backbone(model: Model, x: torch.Tensor, cache: dict | None, cross: dict,
     for per in range(model.cfg.n_periods):
         if train and model.cfg.remat:
             x, a = checkpoint(_period_seq, model, per, x, cache, rope, cross, causal, train,
-                              use_reentrant=False)
+                              use_reentrant=False, context_fn=_remat_contexts)
         else:
             x, a = _period_seq(model, per, x, cache, rope, cross, causal, train)
         aux = aux + a
@@ -430,7 +465,7 @@ def _backbone(model: Model, x: torch.Tensor, cache: dict | None, cross: dict,
 
 def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
-    x = frames.to(cfg.compute_dtype)
+    x = constrain(frames.to(cfg.compute_dtype), "batch", None, None)
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
     for per in range(cfg.n_enc_layers):
         x = x + _attn_seq(cfg, _slice(model.enc_layers["b0"], per), x, rope, False)[0]
@@ -520,7 +555,7 @@ def forward_train(model: Model, batch: dict, aux_weight: float = 0.01):
 
 @torch.no_grad()
 def prefill(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
-            cache_len: int | None = None):
+            cache_len: int | None = None, cache: dict | None = None):
     """Run the prompt (B, S), behind ``prefix_embeds`` (B, n, d) if given;
     return (last-token logits (B, 1, V), cache) with ``pos`` n + S.
 
@@ -528,11 +563,17 @@ def prefill(model: Model, tokens: torch.Tensor, prefix_embeds=None, memory=None,
     zero past the prompt, the JAX version's padding, so decode can append in
     place.  Mamba and RWKV leaves hold each layer's final state.  An
     encoder-decoder given its ``memory`` (B, S_enc, d) also caches the cross
-    K/V ``ck{i}``/``cv{i}`` and the memory as ``cross_memory``."""
+    K/V ``ck{i}``/``cv{i}`` and the memory as ``cross_memory``.  ``cache``:
+    the leaves of :func:`make_decode_cache` to fill instead of new ones (the
+    dry run passes them distributed over its mesh)."""
     cfg = model.cfg
     x = _embed_inputs(model, tokens, prefix_embeds)
     b, s, _ = x.shape
-    cache = make_decode_cache(cfg, b, cache_len or s, model.device, enc_len=None)
+    if cache is None:
+        cache = make_decode_cache(cfg, b, cache_len or s, model.device, enc_len=None)
+        for name, leaf in cache.items():
+            if name[0] in "kv" and leaf.dim() == 5:
+                cache[name] = constrain(leaf, None, "batch", "kv_seq", None, None)
     cross = _cross_kv(model, memory)
     for i, (k, v) in cross.items():
         cache[f"ck{i}"], cache[f"cv{i}"] = k, v
@@ -552,7 +593,7 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
     ``ops.rwkv_scan``, or, to train, through its plain version."""
     cfg = model.cfg
     eps = cfg.norm_eps
-    b, s, _ = x.shape
+    s = x.shape[1]
     aux = 0.0
     for i, blk, ffn, has_ffn in _positions(cfg):
         p = _slice(model.layers[f"b{i}"], per)
@@ -565,7 +606,7 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
             if i in cross:
                 cp = _slice(model.cross_layers[f"c{i}"], per)
                 att = cross_attention(_cross_q(cfg, cp, x), cross[i][0][per], cross[i][1][per])
-                x = x + att.reshape(b, s, -1) @ cp["wo"]
+                x = x + merge_dims(att, 2) @ cp["wo"]
         elif blk == "mamba":
             out, state = mamba_forward(p, rms_norm(x, p["ln"], eps))
             x = x + out
@@ -586,6 +627,7 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
             out, a = _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)
             x = x + out
             aux = aux + a
+        x = constrain(x, "batch", None, None)
     return x, aux
 
 
@@ -602,7 +644,7 @@ def _slot_positions(pos, device, cache_len: int):
 
 
 @torch.no_grad()
-def decode_step(model: Model, token: torch.Tensor, cache: dict):
+def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache: bool = True):
     """token (B, 1) -> (logits (B, 1, V), cache); ``cache["pos"]`` advances
     by one.
 
@@ -618,68 +660,135 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict):
     RoPE turns each row by its position.  An encoder-decoder's cross block
     then attends, through K4 too, to the whole ``ck{i}``/``cv{i}`` (pos =
     S_enc for every row).  Mamba and RWKV: each layer's states are
-    overwritten by the step's (plain PyTorch, as in JAX)."""
+    overwritten by the step's (plain PyTorch, as in JAX).
+
+    ``update_cache=False`` is JAX's read-only (paged) decode: no tensor of
+    ``cache`` is written.  Each attention layer attends to its first ``pos``
+    cache rows (row b to its first ``pos[b]``) and to the current token as a
+    self term in the same softmax (K4 with ``k_new``/``v_new``; under a
+    mesh whose rules shard ``kv_seq``, the sequence-sharded partials and
+    merge).  Returns a new dict with JAX's keys: ``kf{i}``/``vf{i}`` (P, B,
+    1, KV, dh), the token's K/V after RoPE, for the caller to land; the new
+    ``ssm``/``conv``/``wkv``/``sa``/``sc`` states as new tensors; ``ck``/
+    ``cv`` and ``cross_memory`` passed through; ``pos + 1``."""
     cfg = model.cfg
     pos = cache["pos"]
     if getattr(pos, "ndim", 0) == 1:
         attn = [i for i, blk, _, _ in _positions(cfg) if blk == "attn"]
         dev, *slots = _slot_positions(pos, model.device,
                                       cache[f"k{attn[0]}"].shape[2] if attn else 1)
+        if not update_cache:   # each row's first pos[b] rows, and itself
+            slots = [dev.to(torch.int32), int(torch.as_tensor(pos).max()), None]
         rope = _rope(cfg, dev[:, None])
     else:
         pos = int(pos)
         slots = None
         rope = _rope(cfg, torch.full((1, 1), pos, device=model.device))
-    x = model.embed[token]
+    # F.embedding is the same gather as indexing; a vocab-sharded table then
+    # stays sharded under a mesh (a masked lookup and a sum of (B, 1, d))
+    x = constrain(F.embedding(token, model.embed), "batch", None, None)
+    new = None if update_cache else {}
     for per in range(cfg.n_periods):
-        x = _period_decode(model, per, x, cache, pos, rope, slots)
-    cache["pos"] = pos + 1
-    return _logits(model, x), cache
+        x = _period_decode(model, per, x, cache, pos, rope, slots, new)
+    if update_cache:
+        cache["pos"] = pos + 1
+        return _logits(model, x), cache
+    out = {k: torch.stack(v) for k, v in new.items()}
+    out.update({k: v for k, v in cache.items() if k.startswith(("ck", "cv"))})
+    if "cross_memory" in cache:
+        out["cross_memory"] = cache["cross_memory"]
+    out["pos"] = pos + 1
+    return _logits(model, x), out
+
+
+def _seq_sharding(cfg: ModelConfig) -> dict | None:
+    """The sequence-sharded decode's mesh arguments under a mesh whose rules
+    shard ``kv_seq`` (and H % KV == 0, as JAX picks); None otherwise."""
+    rules = current_rules() or {}
+    mesh = current_mesh()
+    seq_axes = tuple(rules.get("kv_seq", ()))
+    if mesh is None or not seq_axes or cfg.n_heads % cfg.n_kv_heads:
+        return None
+    return {"mesh": mesh, "batch_axes": tuple(rules.get("batch", ())), "seq_axes": seq_axes}
+
+
+def _readonly_attention(cfg: ModelConfig, q, k, v, k_cache, v_cache, pos, slots):
+    """The read-only decode's attention of q (B, 1, H, dh) with the self
+    term k/v (B, 1, KV, dh): sequence-sharded under :func:`_seq_sharding`,
+    else K4."""
+    sharding = _seq_sharding(cfg)
+    if sharding is not None:
+        return seq_sharded_decode_attention(q, k_cache, v_cache, pos if slots is None else
+                                            slots[0], k, v, **sharding)[:, 0]
+    kn, vn = k[:, 0].contiguous(), v[:, 0].contiguous()
+    if slots is None:
+        return kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
+                                       k_new=kn, v_new=vn)
+    return kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, slots[1], slots[0],
+                                   k_new=kn, v_new=vn)
 
 
 def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, rope,
-                   slots=None) -> torch.Tensor:
+                   slots=None, new: dict | None = None) -> torch.Tensor:
+    """Period ``per`` of a decode step.  ``new`` (a dict of lists) makes it
+    read-only: the period's new K/V fragments and states are appended
+    there, by leaf name, and no cache tensor is written."""
     cfg = model.cfg
     eps = cfg.norm_eps
     b = x.shape[0]
+
+    def keep(name, t, inplace):
+        if new is None:
+            inplace.copy_(t)
+        else:
+            new.setdefault(name, []).append(t)
+
     for i, blk, ffn, has_ffn in _positions(cfg):
         p = _slice(model.layers[f"b{i}"], per)
         if blk == "attn":
             q, k, v = _qkv(cfg, p, x, *rope)
             k_cache, v_cache = cache[f"k{i}"][per], cache[f"v{i}"][per]
-            if slots is None:
+            if new is not None:
+                att = _readonly_attention(cfg, q, k, v, k_cache, v_cache, pos, slots)
+                keep(f"kf{i}", k, None)
+                keep(f"vf{i}", v, None)
+            elif slots is None:
                 k_cache[:, pos] = k[:, 0]
                 v_cache[:, pos] = v[:, 0]
                 att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
             else:
                 lengths, longest, flat = slots
-                for c, new in ((k_cache, k), (v_cache, v)):
-                    c.view(-1, *c.shape[2:]).index_copy_(0, flat, new[:, 0].to(c.dtype))
+                for c, kv_new in ((k_cache, k), (v_cache, v)):
+                    c.view(-1, *c.shape[2:]).index_copy_(0, flat, kv_new[:, 0].to(c.dtype))
                 att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, longest,
                                               lengths)
             x = x + att.reshape(b, 1, -1) @ p["wo"]
             if cfg.is_enc_dec:
                 cp = _slice(model.cross_layers[f"c{i}"], per)
                 ck, cv = cache[f"ck{i}"][per], cache[f"cv{i}"][per]
-                att = kernel_decode_attention(_cross_q(cfg, cp, x)[:, 0].contiguous(), ck, cv,
-                                              ck.shape[1])
+                cq, sharding = _cross_q(cfg, cp, x), _seq_sharding(cfg)
+                if sharding is None:
+                    att = kernel_decode_attention(cq[:, 0].contiguous(), ck, cv, ck.shape[1])
+                else:   # the cross cache is cut along S_enc as the self cache is
+                    att = seq_sharded_decode_attention(cq, ck, cv, ck.shape[1],
+                                                       **sharding)[:, 0]
                 x = x + att.reshape(b, 1, -1) @ cp["wo"]
         elif blk == "mamba":
             ssm, conv = cache[f"ssm{i}"][per], cache[f"conv{i}"][per]
             out, state = mamba_decode_step(p, rms_norm(x, p["ln"], eps),
                                            {"ssm": ssm, "conv": conv})
             x = x + out
-            ssm.copy_(state["ssm"])
-            conv.copy_(state["conv"])
+            keep(f"ssm{i}", state["ssm"], ssm)
+            keep(f"conv{i}", state["conv"], conv)
         else:
             wkv, sa, sc = cache[f"wkv{i}"][per], cache[f"sa{i}"][per], cache[f"sc{i}"][per]
             out, new_wkv, last = rwkv_time_mix_step(p, rms_norm(x, p["ln1"], eps), wkv, sa)
             x = x + out
             out, last2 = rwkv_channel_mix_step(p, rms_norm(x, p["ln2"], eps), sc)
             x = x + out
-            wkv.copy_(new_wkv)
-            sa.copy_(last)
-            sc.copy_(last2)
+            keep(f"wkv{i}", new_wkv, wkv)
+            keep(f"sa{i}", last, sa)
+            keep(f"sc{i}", last2, sc)
         if has_ffn:
             x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)[0]
     return x

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import InitSpec, swiglu
+from .sharding import merge_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +123,7 @@ def _moe_ffn_once(x: torch.Tensor, params: dict,
 
     # Expert computation over the stacked expert weights.
     h = F.silu(torch.bmm(h, params["w_gate"])) * torch.bmm(h, params["w_up"])
-    y = torch.bmm(h, params["w_down"]).reshape(e * cap, d)
+    y = merge_dims(torch.bmm(h, params["w_down"]), 0, 1)
 
     # Gather back (a dropped slot reads the zero row) and combine with the
     # gates, a token's k terms summed in order in x's dtype.

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .common import InitSpec
+from .sharding import local_region, merge_dims, split_dim
 
 HEAD_DIM = 64
 LORA_R = 32
@@ -86,25 +87,38 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     scaled (f32 out, as JAX promotes)."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + 1e-5)).reshape(*x.shape[:-2], -1) * scale.float()
+    return merge_dims(xf * torch.rsqrt(var + 1e-5), -2) * scale.float()
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, scan=None):
     """x (B, S, d) -> (out (B, S, d), (wkv_state (B, H, dh, dh) f32, last_x
     (B, d))).  ``scan`` runs the recurrence: ``ops.rwkv_scan`` by default
     (K7 on the card, no backward), ``ref.rwkv_scan_ref`` to train."""
-    b, s, d = x.shape
-    h = d // HEAD_DIM
+    h = x.shape[-1] // HEAD_DIM
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shifted(x)).unbind(dim=2)
-    r = (xr @ p["w_r"]).reshape(b, s, h, HEAD_DIM)
-    k = (xk @ p["w_k"]).reshape(b, s, h, HEAD_DIM)
-    v = (xv @ p["w_v"]).reshape(b, s, h, HEAD_DIM)
+    r, k, v = (split_dim(t @ p[n], -1, (h, HEAD_DIM))
+               for t, n in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
     g = F.silu(xg @ p["w_g"])
-    w = _decay(p, xw).reshape(b, s, h, HEAD_DIM)
-    y, final = (scan or ops.rwkv_scan)(r.float(), k.float(), v.float(), w.contiguous(),
-                                       p["bonus_u"].float())
+    w = split_dim(_decay(p, xw), -1, (h, HEAD_DIM))
+    rows = ("batch", None, None, None)
+    scan = local_region(scan or ops.rwkv_scan, (rows,) * 4 + ((None, None),), (rows, rows),
+                        shapes=_scan_shapes)
+    y, final = scan(r.float(), k.float(), v.float(), w.contiguous(), p["bonus_u"].float())
     y = _group_norm(y, p["ln_x"]).to(x.dtype)
     return (y * g) @ p["w_o"], (final, x[:, -1])
+
+
+def _scan_shapes(r, k, v, w, u):
+    """The scan's stand-in on the meta device (the dry run's local shards
+    hold shapes, no values; no kernel takes them): not the T steps but one
+    elementwise step over every position, of the scan's output shapes and
+    dtypes and reading every input (so the backward pass reaches each).
+    The recurrence is elementwise, which operation counts leave out either
+    way."""
+    kv = k.float()[..., :, None] * v.float()[..., None, :]        # (B, T, H, dh, dh)
+    u = u.float()[None, None, :, :, None]
+    ys = (r.float()[..., None] * (w.float()[..., None] + u * kv)).sum(dim=-2)
+    return ys.to(r.dtype), kv.sum(dim=1)
 
 
 def rwkv_time_mix_step(p: dict, x: torch.Tensor, wkv: torch.Tensor,
@@ -114,11 +128,10 @@ def rwkv_time_mix_step(p: dict, x: torch.Tensor, wkv: torch.Tensor,
     b, _, d = x.shape
     h = d // HEAD_DIM
     xr, xk, xv, xw, xg = _ddlerp(p, x[:, 0], x_prev).unbind(dim=1)
-    r = (xr @ p["w_r"]).reshape(b, h, HEAD_DIM).float()
-    k = (xk @ p["w_k"]).reshape(b, h, HEAD_DIM).float()
-    v = (xv @ p["w_v"]).reshape(b, h, HEAD_DIM).float()
+    r, k, v = (split_dim(t @ p[n], -1, (h, HEAD_DIM)).float()
+               for t, n in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
     g = F.silu(xg @ p["w_g"])
-    w = _decay(p, xw).reshape(b, h, HEAD_DIM)
+    w = split_dim(_decay(p, xw), -1, (h, HEAD_DIM))
     u = p["bonus_u"].float()
     kv = k[..., :, None] * v[..., None, :]
     y = torch.einsum("bhk,bhkv->bhv", r, wkv + u[None, :, :, None] * kv)

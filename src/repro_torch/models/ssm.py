@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import InitSpec
+from .sharding import local_region
 
 D_STATE = 16
 D_CONV = 4
@@ -86,10 +87,22 @@ def mamba_forward(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     xc = torch.cat([pad, x_in], dim=1)
     conv = F.silu(_conv(xc, params["conv_w"], s) + params["conv_b"])
     dt, bmat, cmat = _ssm_coeffs(params, conv)         # (B,S,di), (B,S,N), (B,S,N)
-    a = _a(params)
+    rows, di = ("batch", None, None), ("batch", None, "ff")
+    y, state = local_region(_selective_scan, (di, di, rows, rows, ("ff", None)),
+                            (di, ("batch", "ff", None)))(conv, dt, bmat, cmat, _a(params))
+    y = y.to(x.dtype)
+    y = y + conv * params["d_skip"]
+    out = (y * F.silu(z)) @ params["out_proj"]
+    return out, {"ssm": state.clone(), "conv": xc[:, -(D_CONV - 1):]}
+
+
+def _selective_scan(conv, dt, bmat, cmat, a):
+    """The S6 recurrence over (B, S): (y (B, S, di) f32, the final state
+    (B, di, N) f32)."""
+    b, s, d_inner = conv.shape
     # Time-major f32 copies: a step's slice of each block is contiguous.
     conv_t, dt_t, b_t, c_t = (t.transpose(0, 1).float() for t in (conv, dt, bmat, cmat))
-    state = torch.zeros((b, d_inner, D_STATE), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, d_inner, D_STATE), dtype=torch.float32, device=conv.device)
     ys = []
     for t0 in range(0, s, TIME_BLOCK):
         blk = slice(t0, min(t0 + TIME_BLOCK, s))
@@ -109,10 +122,7 @@ def mamba_forward(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
                 state = state_t.addcmul_(state, da_t)
         ys.append(torch.einsum("tbin,tbn->tbi", states, c_t[blk]))
         del da, states
-    y = torch.cat(ys).transpose(0, 1).to(x.dtype)       # (B, S, di)
-    y = y + conv * params["d_skip"]
-    out = (y * F.silu(z)) @ params["out_proj"]
-    return out, {"ssm": state.clone(), "conv": xc[:, -(D_CONV - 1):]}
+    return torch.cat(ys).transpose(0, 1), state          # (B, S, di)
 
 
 def mamba_decode_step(params: dict, x: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:

@@ -11,9 +11,10 @@ its AdamW rounds differently.
 
 ``params`` and ``grads`` are dicts of tensors by parameter name (the
 model's dotted names); a state holds dicts of the same names.  ``update``
-returns new tensors and leaves its inputs as they are.  The sharding specs
-of the optimizer state (JAX's ``opt_state_specs``) wait for the port's
-sharding.
+returns new tensors and leaves its inputs as they are.  Each optimizer's
+``state_partition_specs`` and :func:`opt_state_specs` give the state's specs
+(``models/sharding.py``: a tuple of mesh-axis entries per dimension) from
+the parameters', as JAX's do.
 """
 
 from __future__ import annotations
@@ -64,6 +65,9 @@ class AdamW:
             new_p[k] = (p.to(F32) - self.lr * delta).to(p.dtype)
             new_m[k], new_v[k] = m, v
         return new_p, {"m": new_m, "v": new_v, "step": step}
+
+    def state_partition_specs(self, param_specs: dict) -> dict:
+        return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +123,11 @@ class Adafactor:
             new_p[k] = newp.to(p.dtype)
         return new_p, {"acc": new_acc, "step": step}
 
+    def state_partition_specs(self, param_specs: dict) -> dict:
+        """JAX's raw form: the parameters' specs under ``acc``; the factored
+        leaves' specs come from :func:`opt_state_specs`."""
+        return {"acc": param_specs, "step": ()}
+
 
 def make_optimizer(name: str, **kw):
     if name == "adamw":
@@ -126,3 +135,26 @@ def make_optimizer(name: str, **kw):
     if name == "adafactor":
         return Adafactor(**kw)
     raise ValueError(name)
+
+
+def opt_state_specs(opt, params: dict, state: dict, param_specs: dict) -> dict:
+    """Specs matching ``state`` leaf by leaf (``params``: name -> tensor or
+    shape).  AdamW's m and v mirror the parameters'; Adafactor's ``vr``
+    drops the last dimension of its parameter's spec, ``vc`` the one before
+    it, and ``v`` keeps it."""
+    if isinstance(opt, AdamW):
+        return opt.state_partition_specs(param_specs)
+
+    def acc_spec(name, kind, leaf):
+        rank = len(leaf.shape) if hasattr(leaf, "shape") else len(leaf)
+        dims = list(param_specs.get(name, ()))
+        dims += [None] * (rank + (1 if kind in ("vr", "vc") else 0) - len(dims))
+        if kind == "vr":
+            dims = dims[:-1]
+        elif kind == "vc":
+            dims = dims[:-2] + dims[-1:]
+        dims = dims[:rank]
+        return tuple(dims + [None] * (rank - len(dims)))
+
+    return {"acc": {name: {kind: acc_spec(name, kind, leaf) for kind, leaf in acc.items()}
+                    for name, acc in state["acc"].items()}, "step": ()}

@@ -200,6 +200,133 @@ def test_flash_decode_rejects_bad_lengths(cuda):
         flash_decode(q, k, k, 4, torch.full((2,), 4, dtype=torch.int32))
 
 
+def _fd_self(cuda, dtype, b, kv, dh, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((b, kv, dh), generator=gen, device=cuda).to(dtype) for _ in range(2)]
+
+
+def _fd_held(out, want, what):
+    rtol, atol = FD_TOL[want.dtype]
+    want = want.float()
+    excess = ((out.float() - want).abs() - rtol * want.abs() - atol).max().item()
+    assert excess <= 0, (what, (out.float() - want).abs().max().item(), excess)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,dh,s", [
+    (4, 40, 8, 128, 4096),  # qwen3-14b
+    (2, 16, 2, 64, 1024),   # G 8
+    (3, 24, 3, 16, 600),    # G 8, dh 16
+    (2, 12, 4, 256, 700),   # dh 256
+    (4, 16, 16, 64, 300),   # G 1, a short cache
+])
+def test_flash_decode_self_term_matches_plain(cuda, dtype, b, h, kv, dh, s):
+    """K4 with ``k_new``/``v_new`` against its plain version: pos 0 (the
+    token alone: exactly v_new), 1, a range's edge and one past it, 2056
+    and S; per-row lengths with rows of 0; two calls bitwise equal."""
+    from repro_torch.kernels.flash_decode import flash_decode, plan_for
+
+    q, k, v = _fd_inputs(cuda, dtype, b, h, kv, dh, s, 13 * b + dh)
+    kn, vn = _fd_self(cuda, dtype, b, kv, dh, 3 * b + dh)
+    full = [p for p in range(2, s + 1)
+            if (pl := plan_for(q, k, p)).n_split > 1 and pl.n_split * pl.range_len == p]
+    for pos in sorted({0, 1, full[0], full[0] + 1, min(2056, s), s}):
+        out = flash_decode(q, k, v, pos, k_new=kn, v_new=vn)
+        _fd_held(out, ref.flash_decode_ref(q, k, v, pos, kn, vn), (pos, "self"))
+        assert torch.equal(out, flash_decode(q, k, v, pos, k_new=kn, v_new=vn)), pos
+    assert torch.equal(flash_decode(q, k, v, 0, k_new=kn, v_new=vn),
+                       vn.repeat_interleave(h // kv, dim=1))
+    for lengths in _ragged_cases(q, k, s) + [tuple([0, s] * b)[:b], (0,) * b]:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        out = flash_decode(q, k, v, max(lengths), lens, kn, vn)
+        _fd_held(out, ref.flash_decode_ref(q, k, v, lens, kn, vn), (lengths, "self"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_null_self_is_the_plain_launch(cuda, dtype):
+    """Without ``k_new`` the launch is the one of the kernel before the
+    self term: the same split, bitwise the same output as with lengths."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    q, k, v = _fd_inputs(cuda, dtype, 4, 40, 8, 128, 4096, 17)
+    for pos in (1, 121, 2056):
+        lens = torch.full((4,), pos, dtype=torch.int32, device=cuda)
+        assert torch.equal(flash_decode(q, k, v, pos, None, None, None),
+                           flash_decode(q, k, v, pos, lens)), pos
+        _fd_check(q, k, v, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_flash_decode_partials_and_merge(cuda, dtype, n_shards):
+    """K4's partials mode on each sequence shard (the self term on shard 0,
+    a shard past every row's end empty) against its plain version, and
+    the merge of the shards' partials against one launch over the whole
+    cache; per-row lengths too."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partials
+    from repro_torch.models.attention import EMPTY_M, merge_partials
+
+    b, h, kv, dh, s = 4, 40, 8, 128, 4096
+    q, k, v = _fd_inputs(cuda, dtype, b, h, kv, dh, s, 19 + n_shards)
+    kn, vn = _fd_self(cuda, dtype, b, kv, dh, 23)
+    step = s // n_shards
+    for pos in (2056 if n_shards == 4 else 1500, (2056, 1031, 17, 0)):
+        lens = None if isinstance(pos, int) else torch.tensor(pos, dtype=torch.int32,
+                                                                device=cuda)
+        longest = pos if lens is None else max(pos)
+        parts = []
+        for lo in range(0, s, step):
+            kl, vl = k[:, lo:lo + step].contiguous(), v[:, lo:lo + step].contiguous()
+            local = min(max(longest - lo, 0), step)
+            self_kv = dict(k_new=kn, v_new=vn) if lo == 0 else {}
+            got = flash_decode_partials(q, kl, vl, local, lens, start=lo, **self_kv)
+            want = ref.flash_decode_partials_ref(q, kl, vl, local, lens, start=lo, **self_kv)
+            m_ok = torch.where(want[1] == EMPTY_M, got[1] == EMPTY_M,
+                               (got[1] - want[1]).abs() <= 1e-5 * want[1].abs() + 1e-5)
+            assert bool(m_ok.all()), (lo, pos)
+            torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+            if local == 0 and lo > 0:
+                assert bool((got[1] == EMPTY_M).all()) and not got[2].any()
+            parts.append(got)
+        whole = flash_decode(q, k, v, longest, lens, kn, vn)
+        _fd_held(merge_partials(parts, dtype), ref.flash_decode_ref(
+            q, k, v, pos if lens is None else lens, kn, vn), (n_shards, pos))
+        _fd_held(whole, ref.flash_decode_ref(q, k, v, pos if lens is None else lens, kn, vn),
+                 (n_shards, pos, "whole"))
+
+
+def test_readonly_decode_on_card_matches_cpu(cuda):
+    """``decode_step(update_cache=False)`` of the qwen3-14b and jamba smoke
+    configs in f32 on the card (K4 with the self term) against the CPU: the
+    logits and fragments within FD_TOL's f32 atol, the card's input cache
+    unchanged."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Model, decode_step, init_random_, prefill
+
+    for arch in ("qwen3-14b", "jamba-v0.1-52b"):
+        cfg = dataclasses.replace(get_spec(arch).smoke, compute_dtype=torch.float32)
+        cpu = init_random_(Model(cfg, device="cpu"), 0)
+        card = Model(cfg, device=cuda)
+        card.load_state_dict(cpu.state_dict())
+        tokens = torch.randint(0, cfg.vocab_size, (3, 24), generator=torch.Generator().manual_seed(1))
+        tok = tokens[:, :1]
+        outs = []
+        for model, dev in ((cpu, "cpu"), (card, cuda)):
+            _, cache = prefill(model, tokens.to(dev), cache_len=40)
+            cache["pos"] = torch.tensor([24, 19, 0])
+            before = {k: v.clone() for k, v in cache.items() if isinstance(v, torch.Tensor)}
+            logits, out = decode_step(model, tok.to(dev), cache, update_cache=False)
+            assert all(torch.equal(cache[k], v) for k, v in before.items())
+            outs.append((logits.cpu(), {k: v.cpu() for k, v in out.items()
+                                        if isinstance(v, torch.Tensor)}))
+        torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=1e-4)
+        for key, leaf in outs[0][1].items():
+            torch.testing.assert_close(outs[1][1][key], leaf, rtol=0, atol=1e-4)
+
+
 def test_kernels_refuse_inputs_that_require_grad_on_the_card(cuda):
     """K4 and K7 have no backward: ``ops`` raises on inputs that require
     grad and does not give way to the plain version."""
