@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import hosttrace
 from . import build
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -144,6 +145,9 @@ def _launch(q, k_cache, v_cache, pos, lengths, k_new, v_new, start: int,
         return None if t is None else t.data_ptr()
 
     lib = _lib()
+    tr = hosttrace.RECORDER
+    if tr is not None:
+        tr.stamp(hosttrace.K4_LAUNCH)
     rc = lib.flash_decode_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                                  out.data_ptr(), ptr(part), ptr(lengths), ptr(k_new), ptr(v_new),
                                  b, h, kv, seq_stride, dh, pos, int(start), plan.n_split,

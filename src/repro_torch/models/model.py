@@ -68,6 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import hosttrace
 from ..kernels import ref
 from ..kernels.build import resolve_device
 from .attention import (
@@ -743,7 +744,10 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
         else:
             new.setdefault(name, []).append(t)
 
+    tr = hosttrace.RECORDER
     for i, blk, ffn, has_ffn in _positions(cfg):
+        if tr is not None and blk == "attn":
+            i_attn = tr.begin(hosttrace.ATTN, per * len(cfg.block_pattern) + i)
         p = _slice(model.layers[f"b{i}"], per)
         if blk == "attn":
             q, k, v = _qkv(cfg, p, x, *rope)
@@ -773,6 +777,8 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
                     att = seq_sharded_decode_attention(cq, ck, cv, ck.shape[1],
                                                        **sharding)[:, 0]
                 x = x + att.reshape(b, 1, -1) @ cp["wo"]
+            if tr is not None:
+                tr.end(i_attn)
         elif blk == "mamba":
             ssm, conv = cache[f"ssm{i}"][per], cache[f"conv{i}"][per]
             out, state = mamba_decode_step(p, rms_norm(x, p["ln"], eps),
@@ -790,5 +796,10 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
             keep(f"sa{i}", last, sa)
             keep(f"sc{i}", last2, sc)
         if has_ffn:
+            if tr is not None:
+                i_ffn = tr.begin(hosttrace.FFN, per * len(cfg.block_pattern) + i,
+                                 int(ffn != "dense"))
             x = x + _ffn(cfg, ffn, _slice(model.layers[f"f{i}"], per), x)[0]
+            if tr is not None:
+                tr.end(i_ffn)
     return x

@@ -8,6 +8,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import hosttrace
 from ..models.model import Model, decode_step, make_decode_cache, prefill
 
 
@@ -97,11 +98,21 @@ class DecodeEngine:
         [(request_id, token)] emitted and retires finished slots."""
         if self.beta == 0:
             return []
+        tr = hosttrace.for_step()
+        if tr is not None:
+            i_step = tr.begin(hosttrace.STEP, self.beta, self.n_slots)
+            i_part = tr.begin(hosttrace.ENQUEUE)
         active = [i for i, s in enumerate(self.slots) if s.active]
         self.cache["pos"] = int(self._pos[active].max())
         tokens = torch.as_tensor(self._tokens, device=self.model.device)[:, None]
         logits, _ = decode_step(self.model, tokens, self.cache)
-        nxt = torch.argmax(logits[:, 0], dim=-1).tolist()
+        nxt = torch.argmax(logits[:, 0], dim=-1)
+        if tr is not None:
+            tr.end(i_part)
+            i_part = tr.begin(hosttrace.READBACK)
+        nxt = nxt.tolist()
+        if tr is not None:
+            tr.end(i_part)
         emitted = []
         for i in active:
             tok = int(nxt[i])
@@ -112,4 +123,6 @@ class DecodeEngine:
             emitted.append((s.request_id, tok))
             if len(s.tokens_out) >= s.max_new:
                 s.active = False
+        if tr is not None:
+            tr.end(i_step)
         return emitted
