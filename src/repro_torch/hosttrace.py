@@ -14,7 +14,11 @@ What the decode path records:
     decode.readback  the step's token read, the host waiting for the device (child of decode.step)
     layer.attn       an attention block of models/model.py::_period_decode   a = layer
     layer.ffn        an FFN of _period_decode and its residual   a = layer, b = 1 for MoE
-    k4.launch        (stamp) K4's launch, just before the call into the library
+    k4.launch        (stamp) K4's launch, just before the call into the library; in a
+                     replayed step one a K4 call of the graph, just before the replay
+    decode.graph     the staging copy and the replay of a decode step's CUDA graph
+                     (models/decode_graph.py; child of decode.enqueue)   a = the K4 plan
+                     bucket's top, b = 1 where the step captured the graph first
 
 ``RECORDER`` is None while recording is off.  Every site reads it once and
 guards on ``is not None``, so with recording off a step pays one branch a
@@ -33,8 +37,8 @@ import time
 from torch.autograd import profiler as _profiler
 
 NAMES = ("decode.step", "decode.enqueue", "decode.readback", "layer.attn", "layer.ffn",
-         "k4.launch")
-STEP, ENQUEUE, READBACK, ATTN, FFN, K4_LAUNCH = range(len(NAMES))
+         "k4.launch", "decode.graph")
+STEP, ENQUEUE, READBACK, ATTN, FFN, K4_LAUNCH, GRAPH = range(len(NAMES))
 
 _now = time.perf_counter_ns
 

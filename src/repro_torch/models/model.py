@@ -632,36 +632,59 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
     return x, aux
 
 
-def _slot_positions(pos, device, cache_len: int):
-    """A vector ``pos`` (B,) as (its positions on the device, the lengths
-    ``pos + 1`` as int32 there, the longest length, each row's flat index
-    ``b * cache_len + pos`` into a (B * cache_len, ...) view of a K/V
-    leaf): one copy to the card a step, nothing read back where ``pos``
-    lies on the host."""
-    host = torch.as_tensor(pos).to("cpu", torch.int64)
-    dev = host.to(device)
-    flat = torch.arange(len(host), device=device) * cache_len + dev
-    return dev, (dev + 1).to(torch.int32), int(host.max()) + 1, flat
+def decode_body(model: Model, token: torch.Tensor, positions: torch.Tensor, cache: dict,
+                longest: int) -> torch.Tensor:
+    """The writing decode step from device tensors alone: token (B, 1) and
+    each row's position ``positions`` (B,) int64, both on the model's
+    device, and ``longest``, a host int at least ``max(positions) + 1``,
+    which K4 plans its split over -> logits (B, 1, V).
+
+    On the device it derives the lengths ``positions + 1`` (int32), each
+    row's flat index ``b * cache_len + pos`` into a (B * cache_len, ...)
+    view of a K/V leaf, and the RoPE tables; then every period and the
+    head.  The cache is written in place; ``cache["pos"]`` is left as it
+    is.  Nothing is copied from the host or read back, so a CUDA graph can
+    capture it (``models/decode_graph.py``)."""
+    cfg = model.cfg
+    attn = [i for i, blk, _, _ in _positions(cfg) if blk == "attn"]
+    cache_len = cache[f"k{attn[0]}"].shape[2] if attn else 1
+    lengths = (positions + 1).to(torch.int32)
+    flat = torch.arange(positions.shape[0], device=positions.device) * cache_len + positions
+    rope = _rope(cfg, positions[:, None])
+    x = constrain(F.embedding(token, model.embed), "batch", None, None)
+    for per in range(cfg.n_periods):
+        x = _period_decode(model, per, x, cache, positions, rope, (lengths, longest, flat))
+    return _logits(model, x)
 
 
 @torch.no_grad()
-def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache: bool = True):
+def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache: bool = True,
+                graphs=None):
     """token (B, 1) -> (logits (B, 1, V), cache); ``cache["pos"]`` advances
     by one.
 
     ``cache["pos"]`` is an int, every row at that position, or, as in
     JAX, a (B,) vector of per-slot positions (a tensor or an array; best
-    on the host, so that nothing is read back from the card).
+    on the host, so that nothing is read back from the card).  ``token``
+    may lie on the host; it is copied to the model's device.
 
     The cache is updated in place (JAX returns an updated copy; writing in
     place saves a cache copy per layer).  Attention: each row's new K/V
     lands at its position and attention runs through
     ``attention.kernel_decode_attention`` (K4) over each row's first pos+1
-    entries (per-row lengths for a vector, one copy to the card a step);
-    RoPE turns each row by its position.  An encoder-decoder's cross block
-    then attends, through K4 too, to the whole ``ck{i}``/``cv{i}`` (pos =
-    S_enc for every row).  Mamba and RWKV: each layer's states are
-    overwritten by the step's (plain PyTorch, as in JAX).
+    entries (per-row lengths; a vector on the host is one copy to the card
+    a step; :func:`decode_body`); RoPE turns each row by its position.  An
+    encoder-decoder's cross block then attends, through K4 too, to the
+    whole ``ck{i}``/``cv{i}`` (pos = S_enc for every row).  Mamba and RWKV:
+    each layer's states are overwritten by the step's (plain PyTorch, as in
+    JAX).
+
+    ``graphs``, a ``decode_graph.DecodeGraphs`` over this ``cache``, runs
+    the step as a CUDA graph where its rule takes the input
+    (``decode_graph.eager_reason``): :func:`decode_body` with every row at
+    the scalar ``pos``, K4 planned over the top of ``pos + 1``'s bucket.
+    The logits are then the runner's buffer, rewritten by its next step.
+    Elsewhere the step runs eagerly, as without it.
 
     ``update_cache=False`` is JAX's read-only (paged) decode: no tensor of
     ``cache`` is written.  Each attention layer attends to its first ``pos``
@@ -674,26 +697,31 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache:
     ``cv`` and ``cross_memory`` passed through; ``pos + 1``."""
     cfg = model.cfg
     pos = cache["pos"]
-    if getattr(pos, "ndim", 0) == 1:
-        attn = [i for i, blk, _, _ in _positions(cfg) if blk == "attn"]
-        dev, *slots = _slot_positions(pos, model.device,
-                                      cache[f"k{attn[0]}"].shape[2] if attn else 1)
-        if not update_cache:   # each row's first pos[b] rows, and itself
-            slots = [dev.to(torch.int32), int(torch.as_tensor(pos).max()), None]
-        rope = _rope(cfg, dev[:, None])
+    logits = None if graphs is None else graphs.run(token, cache, update_cache)
+    if logits is not None:
+        cache["pos"] = int(pos) + 1
+        return logits, cache
+    if token.device != model.device:
+        token = token.to(model.device)
+    vector = getattr(pos, "ndim", 0) == 1
+    if vector:
+        host = torch.as_tensor(pos).to("cpu", torch.int64)
+        dev, longest = host.to(model.device), int(host.max())
     else:
-        pos = int(pos)
-        slots = None
-        rope = _rope(cfg, torch.full((1, 1), pos, device=model.device))
+        pos = longest = int(pos)
+        dev = torch.full((token.shape[0],), pos, dtype=torch.int64, device=model.device)
+    if update_cache:
+        logits = decode_body(model, token, dev, cache, longest + 1)
+        cache["pos"] = pos + 1
+        return logits, cache
+    slots = [dev.to(torch.int32), longest, None] if vector else None  # row b's first pos[b]
+    rope = _rope(cfg, dev[:, None] if vector else dev[:1, None])
     # F.embedding is the same gather as indexing; a vocab-sharded table then
     # stays sharded under a mesh (a masked lookup and a sum of (B, 1, d))
     x = constrain(F.embedding(token, model.embed), "batch", None, None)
-    new = None if update_cache else {}
+    new = {}
     for per in range(cfg.n_periods):
         x = _period_decode(model, per, x, cache, pos, rope, slots, new)
-    if update_cache:
-        cache["pos"] = pos + 1
-        return _logits(model, x), cache
     out = {k: torch.stack(v) for k, v in new.items()}
     out.update({k: v for k, v in cache.items() if k.startswith(("ck", "cv"))})
     if "cross_memory" in cache:
@@ -731,9 +759,12 @@ def _readonly_attention(cfg: ModelConfig, q, k, v, k_cache, v_cache, pos, slots)
 
 def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, rope,
                    slots=None, new: dict | None = None) -> torch.Tensor:
-    """Period ``per`` of a decode step.  ``new`` (a dict of lists) makes it
-    read-only: the period's new K/V fragments and states are appended
-    there, by leaf name, and no cache tensor is written."""
+    """Period ``per`` of a decode step.  Writing, ``slots`` is
+    :func:`decode_body`'s (lengths, longest, flat index).  ``new`` (a dict
+    of lists) makes it read-only: the period's new K/V fragments and states
+    are appended there, by leaf name, and no cache tensor is written;
+    ``slots`` is then None (every row at ``pos``) or (lengths, longest,
+    None)."""
     cfg = model.cfg
     eps = cfg.norm_eps
     b = x.shape[0]
@@ -756,10 +787,6 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
                 att = _readonly_attention(cfg, q, k, v, k_cache, v_cache, pos, slots)
                 keep(f"kf{i}", k, None)
                 keep(f"vf{i}", v, None)
-            elif slots is None:
-                k_cache[:, pos] = k[:, 0]
-                v_cache[:, pos] = v[:, 0]
-                att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos + 1)
             else:
                 lengths, longest, flat = slots
                 for c, kv_new in ((k_cache, k), (v_cache, v)):

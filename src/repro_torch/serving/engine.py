@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from .. import hosttrace
+from ..models.decode_graph import DecodeGraphs
 from ..models.model import Model, decode_step, make_decode_cache, prefill
 
 
@@ -48,7 +49,9 @@ class Slot:
 class DecodeEngine:
     """Fixed-slot continuous batching over one shared batched cache; every
     step decodes all slots at the scalar position of the furthest active
-    slot (inactive slots decode into their own lanes, unread)."""
+    slot (inactive slots decode into their own lanes, unread).  Where the
+    input takes it, a step replays a CUDA graph of this engine's
+    (``models/decode_graph.py``); :attr:`graph_stats` counts how often."""
 
     def __init__(self, instance_id: int, model: Model, *, n_slots: int,
                  cache_len: int):
@@ -60,6 +63,13 @@ class DecodeEngine:
         self.cache = make_decode_cache(model.cfg, n_slots, cache_len, model.device)
         self._pos = np.zeros(n_slots, np.int64)      # per-slot position
         self._tokens = np.zeros(n_slots, np.int64)   # next input token
+        self._graphs = DecodeGraphs(model, self.cache, n_slots)
+
+    @property
+    def graph_stats(self) -> dict:
+        """Steps replayed from a graph, graphs captured, steps run eagerly
+        (``DecodeGraphs.stats``)."""
+        return self._graphs.stats()
 
     def free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if not s.active]
@@ -104,8 +114,8 @@ class DecodeEngine:
             i_part = tr.begin(hosttrace.ENQUEUE)
         active = [i for i, s in enumerate(self.slots) if s.active]
         self.cache["pos"] = int(self._pos[active].max())
-        tokens = torch.as_tensor(self._tokens, device=self.model.device)[:, None]
-        logits, _ = decode_step(self.model, tokens, self.cache)
+        tokens = torch.from_numpy(self._tokens)[:, None]
+        logits, _ = decode_step(self.model, tokens, self.cache, graphs=self._graphs)
         nxt = torch.argmax(logits[:, 0], dim=-1)
         if tr is not None:
             tr.end(i_part)

@@ -55,6 +55,13 @@ def _steps(de, n):
     return [de.step() for _ in range(n)]
 
 
+def _step_of(rec, i):
+    """The ``decode.step`` span that holds span ``i``."""
+    while rec.name[i] != hosttrace.STEP:
+        i = rec.parent[i]
+    return i
+
+
 def _children(rec, parent):
     return [j for j in range(len(rec)) if rec.parent[j] == parent]
 
@@ -184,11 +191,33 @@ def cuda():
 def test_k4_stamps_count_its_launches(cuda, arch):
     model = _model(arch, device=cuda)
     de = _engine(model)
-    before = build.LAUNCHES["flash_decode"]
+    before, replays_before = build.LAUNCHES["flash_decode"], de.graph_stats["replays"]
     rec = hosttrace.enable()
     out = _steps(de, 3)
     hosttrace.disable()
     assert all(len(e) == 2 for e in out)
     assert len(rec.stamp_t) == build.LAUNCHES["flash_decode"] - before == 3 * model.cfg.n_layers
-    assert all(rec.name[p] == hosttrace.ATTN for p in rec.stamp_parent)
+    # a step whose enqueue holds a decode.graph span stamps inside it, any other step inside
+    # its attention blocks
+    replayed = {_step_of(rec, i) for i in range(len(rec)) if rec.name[i] == hosttrace.GRAPH}
+    assert len(replayed) == de.graph_stats["replays"] - replays_before >= 2
+    for p in rec.stamp_parent:
+        assert rec.name[p] == (hosttrace.GRAPH if _step_of(rec, p) in replayed else hosttrace.ATTN)
     assert set(rec.stamp_name) == {hosttrace.K4_LAUNCH}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_k4_stamps_sit_in_the_attention_blocks_of_eager_steps(cuda, arch):
+    """With the engine's graphs off every step is eager on the card: each
+    K4 launch stamped once, inside its attention block."""
+    model = _model(arch, device=cuda)
+    de = _engine(model)
+    de._graphs = None
+    before = build.LAUNCHES["flash_decode"]
+    rec = hosttrace.enable()
+    _steps(de, 3)
+    hosttrace.disable()
+    assert len(rec.stamp_t) == build.LAUNCHES["flash_decode"] - before == 3 * model.cfg.n_layers
+    assert all(rec.name[p] == hosttrace.ATTN for p in rec.stamp_parent)
+    assert [rec.name[i] for i in range(len(rec))].count(hosttrace.ATTN) == 3 * model.cfg.n_layers
