@@ -8,10 +8,11 @@ The numbers compared, each with its limit (the configuration file's
 * ``logit_gap``: over a sample of the finished requests drawn from the
   seed, with the longest in it, the widest gap by which a served token's
   reference logit lies below the reference's best at that position.  The
-  reference runs once over each prompt followed by its served tokens
-  (prefill's first token, then every decode step's, through the landed
-  cache).  The sample stops at ``SAMPLE_TOKENS`` served tokens, ``SAMPLE_MAX``
-  requests or ``SAMPLE_POSITIONS`` positions, whichever comes first.
+  reference (the configuration's layer stack's, ``nkb.stacks``) runs once
+  over each prompt followed by its served tokens (prefill's first token,
+  then every decode step's, through the landed cache).  The sample stops
+  at ``SAMPLE_TOKENS`` served tokens, ``SAMPLE_MAX`` requests or
+  ``SAMPLE_POSITIONS`` positions, whichever comes first.
 * ``logit_rel_err``: over the same positions, the widest relative error of
   the logits the program picked each served token from: the root mean
   square over the vocabulary of their difference from the reference's,
@@ -24,9 +25,11 @@ The numbers compared, each with its limit (the configuration file's
   widest error, not the precision of the rest.
 * ``decision_mismatches``: decisions whose instance or tier differ from
   ``reference.decision``.
-* ``transfer_mismatches``: transfers whose shipped bytes, page tables or
-  landed tables differ from what the request's prompt needs (every valid
-  page of every layer, none held by the decode side: prompts are unique).
+* ``transfer_mismatches``: transfers whose shipped bytes, page tables,
+  leaves shipped whole or landed tables differ from what the request's
+  prompt needs (the layer stack's ``transfer_layout``: for the decoder every
+  valid page of every layer, none held by the decode side, since prompts
+  are unique).
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ import numpy as np
 import torch
 
 from reference import decision as decision_ref
-from reference import model as model_ref
+from reference.model import set_exact
 
+from . import stacks
 from .roofline import PAGE_TOKENS, Dims
 
 SAMPLE_TOKENS = 256
@@ -89,7 +93,8 @@ def position_gaps(weights, cfg, reqs, prompts, device, *, control: bool = False)
     the token it puts first, and its logits' error) and, for a MoE model,
     the float32 reference's smallest router margin at each position.
     Returns ((gaps, errs), (control gaps, control errs, margins) or None)."""
-    model_ref.set_exact()
+    model_ref = stacks.of(cfg).reference
+    set_exact()
     seqs = _seqs(reqs, prompts, device)
     margins = [] if control else None
     ref = model_ref.served_logits(weights, cfg, seqs, margins=margins)
@@ -118,25 +123,28 @@ def decision_mismatches(decisions, deploy) -> list[dict]:
 
 def transfer_mismatches(packs, unpacks, cfg: dict, prompt_lens: set) -> list[str]:
     """Each pack against its prompt: no page held by the decode side (the
-    prompts are unique), the tables of every K/V leaf (all layers, pages 0
-    to the last valid one), the bytes they hold; each unpack against its
-    pack's tables, in call order."""
-    m = Dims(cfg)
+    prompts are unique), the page tables and the leaves shipped whole that
+    the layer stack's ``transfer_layout`` expects, the bytes they hold; each
+    unpack against its pack's tables, in call order."""
+    page_bytes = Dims(cfg).page_bytes
+    layout = stacks.of(cfg).transfer_layout
     pages_per_layer = int(cfg["deployment"]["cache_len"]) // PAGE_TOKENS
     bad = []
     if len(packs) != len(unpacks):
         bad.append(f"{len(packs)} packs, {len(unpacks)} unpacks")
     for n, p in enumerate(packs):
         valid = math.ceil(p["pos"] / PAGE_TOKENS)
-        want = tuple(per * pages_per_layer + pg for per in range(m.layers)
-                     for pg in range(0, valid))
+        tables, whole = layout(cfg, p["pos"], pages_per_layer)
         if p["pos"] not in prompt_lens:
             bad.append(f"pack {n}: pos {p['pos']} is no prompt's length")
         if p["hit_pages"] != 0:
             bad.append(f"pack {n}: {p['hit_pages']} hit pages for a unique prompt")
-        if sorted(p["tables"]) != ["k0", "v0"] or any(t != want for t in p["tables"].values()):
+        if p["tables"] != tables:
             bad.append(f"pack {n}: page tables differ from pages 0..{valid - 1} of each layer")
-        want_bytes = 2 * len(want) * m.page_bytes + sum(p["whole"].values())
+        if p["whole"] != whole:
+            bad.append(f"pack {n}: leaves shipped whole {sorted(p['whole'].items())}, "
+                       f"expected {sorted(whole.items())}")
+        want_bytes = sum(map(len, tables.values())) * page_bytes + sum(whole.values())
         if p["nbytes"] != want_bytes:
             bad.append(f"pack {n}: {p['nbytes']} bytes shipped, {want_bytes} needed")
         if n < len(unpacks) and unpacks[n]["tables"] != p["tables"]:

@@ -15,28 +15,19 @@ from repro_torch.serving import DisaggregatedCluster, ServeRequest
 from repro_torch.serving import cluster as cluster_module  # noqa: F401 (the spans wrap its names)
 from repro_torch.serving import engine as engine_module  # noqa: F401 (the spans wrap its names)
 
+from . import stacks
+
 TIERS = (0, 1, 2, 3)
 
 
 def model_config(cfg: dict) -> ModelConfig:
-    """The program's config for a configuration file, every number taken
-    from the file."""
-    moe = None
-    ffn = ("dense",)
-    if cfg.get("num_local_experts"):
-        moe = MoEConfig(n_experts=int(cfg["num_local_experts"]),
-                        top_k=int(cfg["num_experts_per_tok"]),
-                        d_expert=int(cfg["intermediate_size"]),
-                        capacity_factor=float(cfg["capacity_factor"]),
-                        dispatch_chunks=int(cfg["dispatch_chunks"]))
-        ffn = ("moe",)
-    d, h = int(cfg["hidden_size"]), int(cfg["num_attention_heads"])
-    return ModelConfig(
-        name=cfg["name"], d_model=d, n_layers=int(cfg["num_hidden_layers"]), n_heads=h,
-        n_kv_heads=int(cfg["num_key_value_heads"]), d_head=int(cfg.get("head_dim") or d // h),
-        d_ff=int(cfg["intermediate_size"]), vocab_size=int(cfg["vocab_size"]),
-        ffn_pattern=ffn, moe=moe, rope_theta=float(cfg["rope_theta"]),
-        norm_eps=float(cfg["rms_norm_eps"]), compute_dtype=getattr(torch, cfg["dtype"]))
+    """The program's config for a configuration file, every field the
+    file's layer stack gives (``nkb.stacks``)."""
+    fields = dict(stacks.of(cfg).model_fields(cfg))
+    if fields.get("moe") is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    return ModelConfig(**fields)
 
 
 def model_with(mcfg: ModelConfig, weights: dict) -> Model:

@@ -22,15 +22,19 @@ event is tied to its launch call by the trace's correlation id, and the
 device times are shifted by a line fitted to the lower envelope of the
 events' start less their launch call (``device_clock``: the line's offset
 at the stretch's start and its drift), so that the promptest starts follow
-their launch at once.
+their launch at once.  A window whose promptest event queued behind
+device-bound work (a long prefill in the stretch) lies far above that
+envelope and is left out of the fit.
 
-That mapping is checked before any device-side number is read: the i-th
-``k4.launch`` stamp is paired with the i-th K4 split kernel (the first
-kernel of each K4 call), both taken after the stretch's first step (kineto
-drops device events that read earlier than its start, and the first step's
-can), and every kernel must start after its own stamp.  Where the counts
-differ, or a kernel starts before its stamp, the device-side metric is left
-out and the idle is left unattributed, as ``trace.summarize`` leaves gaps.
+The count of device events a step launched needs none of that: each
+event's launching call, found by its correlation id, lies on the host clock
+(``decode_ops_step``).  The mapping is checked before the idle is read by
+device time: the i-th ``k4.launch`` stamp is paired with the i-th K4 split
+kernel (the first kernel of each K4 call), both taken after the stretch's
+first step (kineto drops device events that read earlier than its start,
+and the first step's can), and every kernel must start after its own stamp.
+Where the counts differ, or a kernel starts before its stamp, the idle is
+left unattributed, as ``trace.summarize`` leaves gaps.
 
 :func:`analyze` also writes one line to standard error, ``{"program_trace":
 ...}``: the K4 lag from stamp to start (least, median), the line, the
@@ -54,6 +58,7 @@ from . import program
 K4_FIRST = "flash_decode_split"     # the first kernel of every K4 call
 OUTSIDE = "outside any span"
 ENVELOPE_WINDOWS = 20               # stretches of launch time the clock line is fitted over
+QUEUED_US = 1000.0                  # a window's least lag this far above the median: queued
 
 
 def _hosttrace():
@@ -78,20 +83,37 @@ def _device_events(prof) -> list[tuple[float, float, str, float | None]]:
 
 def _device_clock(events) -> tuple[float, float]:
     """``(a, b)`` of the line ``a + b * t`` that the device times run ahead
-    of the host's: fitted to each window's least start-after-launch; (0, 0)
-    where too few events have a launch call."""
+    of the host's: fitted to each window's least start-after-launch, leaving
+    out the windows whose least lies more than ``QUEUED_US`` above the
+    windows' median; (0, 0) where too few events have a launch call."""
     pairs = np.array([(s, s - c) for s, _, _, c in events if c is not None])
     if len(pairs) < 2 * ENVELOPE_WINDOWS:
         return 0.0, 0.0
     launch = pairs[:, 0] - pairs[:, 1]
     window = np.minimum(((launch - launch.min()) / (np.ptp(launch) or 1.0)
                          * ENVELOPE_WINDOWS).astype(int), ENVELOPE_WINDOWS - 1)
-    least = [pairs[window == w][np.argmin(pairs[window == w, 1])]
-             for w in range(ENVELOPE_WINDOWS) if (window == w).any()]
+    least = np.array([pairs[window == w][np.argmin(pairs[window == w, 1])]
+                      for w in range(ENVELOPE_WINDOWS) if (window == w).any()])
+    # a window whose promptest event queued behind device-bound work (a long
+    # prefill's GEMMs: ~125 ms) is no point of the envelope
+    least = least[least[:, 1] <= np.median(least[:, 1]) + QUEUED_US]
     if len(least) < 2:
         return 0.0, 0.0
-    b, a = np.polyfit(*np.array(least).T, 1)
+    b, a = np.polyfit(*least.T, 1)
     return float(a), float(b)
+
+
+def _ops_a_step(events, steps_us) -> float | None:
+    """Device events whose launching runtime call (tied by the trace's
+    correlation id; a replayed graph's kernels by their ``cudaGraphLaunch``)
+    starts inside one of the steps' spans, a step: on the host clock alone,
+    so no device clock line is needed.  None without a step or without an
+    event tied to its launch."""
+    calls = sorted(c for *_, c in events if c is not None)
+    if not steps_us or not calls:
+        return None
+    return sum(bisect.bisect_right(calls, e) - bisect.bisect_left(calls, s)
+               for s, e in steps_us) / len(steps_us)
 
 
 def _gaps(events, window_us: float) -> list[tuple[float, float]]:
@@ -187,6 +209,7 @@ def _device_side(run, st: StepSpans, ht, hi_ns: float) -> dict:
         return (t_ns + shift) / 1e3
 
     raw = _device_events(stretch.prof)
+    ops = _ops_a_step(raw, [(to_us(rec.t0[i]), to_us(rec.t1[i])) for i in st.steps[1:]])
     a, b = _device_clock(raw)
     events = [(s - a - b * s, e - a - b * e, name, c) for s, e, name, c in raw]
     # the K4 calls after the first step, by stamp and by launch call
@@ -196,7 +219,8 @@ def _device_side(run, st: StepSpans, ht, hi_ns: float) -> dict:
     k4 = [s for s, _, name, c in events
           if K4_FIRST in name and (c is None or c >= to_us(after_ns))]
     lags = [k - s for s, k in zip(stamps, k4)]
-    out = {"trusted": bool(stamps) and len(stamps) == len(k4) and min(lags) > 0,
+    out = {"ops_a_step": ops,
+           "trusted": bool(stamps) and len(stamps) == len(k4) and min(lags) > 0,
            "k4_lag_us": {"least": min(lags, default=None),
                          "median": statistics.median(lags) if lags else None,
                          "stamps": len(stamps), "kernels": len(k4)},
@@ -207,10 +231,6 @@ def _device_side(run, st: StepSpans, ht, hi_ns: float) -> dict:
     if not out["trusted"]:
         out["idle_by_program_span"] = {"unattributed": sum(e - s for s, e in gaps) / 1e6}
         return out
-    step_us = [(to_us(rec.t0[i]), to_us(rec.t1[i])) for i in st.steps[1:]]
-    starts = [s for s, *_ in events]
-    out["kernels_a_step"] = sum(bisect.bisect_right(starts, e) - bisect.bisect_left(starts, s)
-                                for s, e in step_us) / len(step_us)
     segments = st.segments(to_us)
     seg_starts = [s[0] for s in segments]
     idle: dict[str, float] = {}
@@ -282,10 +302,9 @@ def decode_lane_use_pct(run):
     return 100.0 * sum(st.rec.a[i] for i in st.steps) / lanes if lanes else None
 
 
-def decode_kernels_step(run):
-    """Device events starting inside a ``decode.step`` span, a step, over
-    the stretch's steps but its first (whose first events kineto may drop)."""
+def decode_ops_step(run):
+    """Device events launched inside a ``decode.step`` span, a step, over
+    the stretch's steps but its first (whose first events kineto may
+    drop)."""
     a = analyze(run)
-    if a is None or not a["device"]["trusted"]:
-        return None
-    return a["device"]["kernels_a_step"]
+    return None if a is None else a["device"].get("ops_a_step")

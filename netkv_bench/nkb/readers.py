@@ -4,8 +4,8 @@ to read returns None, and the harness leaves the metric out."""
 
 from __future__ import annotations
 
-from . import stats
-from .roofline import HBM_BYTES_S, bound, decode_step_work, k4_call_bytes
+from . import stacks, stats
+from .roofline import HBM_BYTES_S, bound, k4_call_bytes
 
 
 def _mean(xs):
@@ -62,7 +62,8 @@ def decode_step_ms(run):
 
 def flash_decode_roofline(run):
     """K4 of the traced steps: bytes of each call's inputs (all lanes, the
-    rows the step's position gives each) over K4's device time."""
+    rows the step's position gives each; one call an attention layer) over
+    K4's device time."""
     if run.trace is None:
         return None
     dev = run.trace["kernel_s_by_class"].get("flash_decode", 0.0)
@@ -76,19 +77,20 @@ def flash_decode_roofline(run):
                 2 * sum(s.rows) * run.dims.kv_row_bytes
         else:
             call = k4_call_bytes(run.dims, s.lanes, s.rows)
-        nbytes += run.dims.layers * call
+        nbytes += run.dims.attn_layers * call
     return 100.0 * nbytes / HBM_BYTES_S / dev
 
 
 def decode_mfu(run):
-    """The decode steps' useful work at the published peaks over their
-    walls (the window's steps before the profiler's session): the least
-    time of each step's bytes or operations, whichever binds, summed, over
-    the summed walls."""
+    """The decode steps' useful work (the layer stack's ``decode_step_work``)
+    at the published peaks over their walls (the window's steps before the
+    profiler's session): the least time of each step's bytes or operations,
+    whichever binds, summed, over the summed walls."""
     steps = [s for s in run.clean_steps() if s.positions]
     if not steps:
         return None
-    least = sum(bound(*decode_step_work(run.dims, s.positions))[0] for s in steps)
+    work = stacks.of(run.cfg).decode_step_work
+    least = sum(bound(*work(run.cfg, s.positions))[0] for s in steps)
     return 100.0 * least / sum(s.t1 - s.t0 for s in steps)
 
 

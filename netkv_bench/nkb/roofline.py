@@ -4,13 +4,14 @@
 copied from ``chip_smoke.py`` at commit 8a74bdd2 (``HBM_BYTES_S``,
 ``PEAK_FLOPS``, ``bound``, ``kernel_class``), keyed by dtype name here.
 The byte counts of K2/K3/K4 follow that script's bounds (each input byte
-read once, each output byte written once); the decode step's useful work
-follows its ``model_bounds``, narrowed to the weights and KV that the
-active requests use.  Dimensions come from the benchmark's configuration
-file, never from the program.
+read once, each output byte written once); a decode step's useful work is
+its layer stack's (``nkb.stacks``).  Dimensions come from the benchmark's
+configuration file, never from the program.
 """
 
 from __future__ import annotations
+
+from . import stacks
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and FLOP/s
 # by operand type.
@@ -53,18 +54,17 @@ def kernel_class(name: str, moe: bool = False) -> str:
 
 
 class Dims:
-    """The widths a count needs, from a configuration file."""
+    """The widths a count of K4's or K2/K3's bytes needs, the attention
+    layers a step calls K4 in, and the MoE flag of ``trace.summarize``: from
+    the configuration's layer stack (``nkb.stacks``), whatever its layers."""
 
     def __init__(self, cfg: dict):
-        self.d = int(cfg["hidden_size"])
-        self.layers = int(cfg["num_hidden_layers"])
-        self.heads = int(cfg["num_attention_heads"])
-        self.kv = int(cfg["num_key_value_heads"])
-        self.dh = int(cfg.get("head_dim") or self.d // self.heads)
-        self.vocab = int(cfg["vocab_size"])
-        self.ff = int(cfg["intermediate_size"])
-        self.experts = int(cfg.get("num_local_experts") or 0)
-        self.top_k = int(cfg.get("num_experts_per_tok") or 0)
+        f = stacks.of(cfg).model_fields(cfg)
+        self.heads, self.kv, self.dh = int(f["n_heads"]), int(f["n_kv_heads"]), int(f["d_head"])
+        self.vocab = int(f["vocab_size"])
+        blocks = f.get("block_pattern", ("attn",))
+        self.attn_layers = int(f["n_layers"]) // len(blocks) * blocks.count("attn")
+        self.experts = int((f.get("moe") or {}).get("n_experts", 0))
 
     @property
     def kv_row_bytes(self) -> int:
@@ -74,20 +74,6 @@ class Dims:
     @property
     def page_bytes(self) -> int:
         return PAGE_TOKENS * self.kv_row_bytes
-
-    def attn_params(self) -> int:
-        """Per layer: the q, k, v and o projections."""
-        d, h, kv, dh = self.d, self.heads, self.kv, self.dh
-        return d * h * dh + 2 * d * kv * dh + h * dh * d
-
-    def expert_params(self) -> int:
-        return 3 * self.d * self.ff
-
-    def ffn_params_per_token(self) -> int:
-        """Per layer, the FFN weights one token runs through."""
-        if self.experts:
-            return self.d * self.experts + self.top_k * self.expert_params()
-        return 3 * self.d * self.ff
 
 
 def k4_call_bytes(dims: Dims, lanes: int, rows: int) -> int:
@@ -101,30 +87,3 @@ def pack_call_bytes(dims: Dims, pages: int) -> int:
     """One K2 or K3 call over ``pages`` pages: each read once and written
     once."""
     return 2 * pages * dims.page_bytes
-
-
-def decode_step_work(dims: Dims, positions: list[int]) -> tuple[float, float]:
-    """(bytes, operations) of one decode step's useful work for the active
-    requests at ``positions`` (each the position its token is written at):
-    every weight they use read once (for a MoE, the router and the routed
-    experts, at most all of them), their own K/V rows read and the new row
-    written, the embedding rows gathered; 2 operations a weight a token and
-    4·H·dh a (query, key) pair."""
-    n = len(positions)
-    if n == 0:
-        return 0.0, 0.0
-    if dims.experts:
-        used = min(dims.experts, dims.top_k * n)
-        ffn_bytes = (dims.d * dims.experts + used * dims.expert_params()) * BF16
-    else:
-        ffn_bytes = 3 * dims.d * dims.ff * BF16
-    norms = 2 * dims.d * BF16                     # a layer's two norm scales
-    weights = dims.layers * (dims.attn_params() * BF16 + ffn_bytes + norms) \
-        + dims.d * dims.vocab * BF16 + dims.d * 4     # lm_head, the final norm in f32
-    keys = sum(p + 1 for p in positions)
-    kv = dims.layers * 2 * dims.kv_row_bytes * (keys + n)
-    embed = n * dims.d * BF16
-    per_token = dims.layers * (dims.attn_params() + dims.ffn_params_per_token()) \
-        + dims.d * dims.vocab
-    flops = 2.0 * n * per_token + 4.0 * dims.layers * dims.heads * dims.dh * keys
-    return float(weights + kv + embed), flops

@@ -1,8 +1,10 @@
 """The weights of a run, drawn on the device from ``--seed``.
 
 One ``normal_`` call a tensor, in the type it is served in (bf16; the final
-norm scale in f32), from one ``torch.Generator`` on the device.  Names and
-stacked layouts are the program's parameter tree (``layers.b0.wq`` is
+norm scale in f32), from one ``torch.Generator`` on the device, in the order
+and with the moments the layer stack's ``weight_specs`` gives (``nkb.stacks``;
+a tied output head is not drawn, ``lm_head`` is the embedding's transpose).
+Names and stacked layouts are the program's parameter tree (``layers.b0.wq`` is
 (layers, d, H*dh), weights applied as ``x @ W``), so the program's model can
 hold these tensors without a copy; the reference reads the same tensors.
 Scales keep each projection's output at the scale of its input (std
@@ -22,38 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .roofline import Dims
-
-
-def specs(cfg: dict) -> list[tuple[str, tuple, str, float, float]]:
-    """(name, shape, dtype, mean, std) of every tensor drawn, in draw order.
-    A tied output head is not drawn: ``lm_head`` is the embedding's
-    transpose."""
-    m = Dims(cfg)
-    L, d, h, kv, dh, ff, v = m.layers, m.d, m.heads, m.kv, m.dh, m.ff, m.vocab
-    dt = cfg["dtype"]
-    norm = (1.0, 0.1)
-    out = [("embed", (v, d), dt, 0.0, d ** -0.5),
-           ("out_norm", (d,), "float32", *norm)]
-    if not cfg.get("tie_word_embeddings"):
-        out.append(("lm_head", (d, v), dt, 0.0, d ** -0.5))
-    out += [("layers.b0.ln", (L, d), dt, *norm),
-            ("layers.b0.wq", (L, d, h * dh), dt, 0.0, d ** -0.5),
-            ("layers.b0.wk", (L, d, kv * dh), dt, 0.0, d ** -0.5),
-            ("layers.b0.wv", (L, d, kv * dh), dt, 0.0, d ** -0.5),
-            ("layers.b0.wo", (L, h * dh, d), dt, 0.0, (h * dh) ** -0.5),
-            ("layers.f0.ln", (L, d), dt, *norm)]
-    if m.experts:
-        e = m.experts
-        out += [("layers.f0.moe.router", (L, d, e), dt, 0.0, d ** -0.5),
-                ("layers.f0.moe.w_gate", (L, e, d, ff), dt, 0.0, d ** -0.5),
-                ("layers.f0.moe.w_up", (L, e, d, ff), dt, 0.0, d ** -0.5),
-                ("layers.f0.moe.w_down", (L, e, ff, d), dt, 0.0, ff ** -0.5)]
-    else:
-        out += [("layers.f0.gate", (L, d, ff), dt, 0.0, d ** -0.5),
-                ("layers.f0.up", (L, d, ff), dt, 0.0, d ** -0.5),
-                ("layers.f0.down", (L, ff, d), dt, 0.0, ff ** -0.5)]
-    return out
+from . import stacks
 
 
 @torch.no_grad()
@@ -61,7 +32,7 @@ def draw(cfg: dict, seed: int, device) -> dict[str, torch.Tensor]:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
     w = {}
-    for name, shape, dtype, mean, std in specs(cfg):
+    for name, shape, dtype, mean, std in stacks.of(cfg).weight_specs(cfg):
         t = torch.empty(shape, dtype=getattr(torch, dtype), device=device)
         w[name] = t.normal_(mean, std, generator=gen)
     if cfg.get("tie_word_embeddings"):

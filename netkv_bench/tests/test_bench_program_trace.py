@@ -1,12 +1,14 @@
 """The readers of the program's own decode spans (``nkb.program_trace``):
-on hand-made span records and kernel lists (self time, kernels inside and
-outside steps, the clock check refused, nothing without a stretch), in a
+on hand-made span records and kernel lists (self time, device events
+launched inside and outside steps, the clock check refused, the clock line
+past a window queued behind a prefill, nothing without a stretch), in a
 traced rehearsal on the CPU, and the rule that only ``nkb.program``
 imports the program."""
 
 import ast
 import types
 
+import numpy as np
 import pytest
 from torch.autograd import DeviceType
 
@@ -18,6 +20,7 @@ PERF_ON_S = 1.0                   # the stretch began recording at perf_counter 
 WALL_NS_ON = 7_000                # ... and at wall clock 7 us, the trace's start
 SPANS = ("decode_enqueue_ms.batch", "decode_readback_ms.batch", "attn_host_ms.batch",
          "ffn_host_ms.batch", "decode_lane_use_pct.batch")
+OPS = "decode_ops_step.batch"
 
 
 def _ns(us):
@@ -92,8 +95,7 @@ def recorded(monkeypatch):
 
 
 def _read(run):
-    return {name: harness.load_reader(name)(run) for name in
-            SPANS + ("decode_kernels_step.batch",)}
+    return {name: harness.load_reader(name)(run) for name in SPANS + (OPS,)}
 
 
 # Two steps: [0, 1000) and [1200, 1900) us; the first holds its enqueue
@@ -121,8 +123,8 @@ def test_span_readers_and_self_time(recorded, capsys):
     assert got["attn_host_ms.batch"] == pytest.approx((0.2 + 0.1) / 2)
     assert got["ffn_host_ms.batch"] == pytest.approx((0.3 + 0.2) / 2)
     assert got["decode_lane_use_pct.batch"] == pytest.approx(100 * 3 / 8)
-    # the second step (the first is not counted) holds 2 of the 9 kernels
-    assert got["decode_kernels_step.batch"] == pytest.approx(2)
+    # the second step (the first is not counted) launched 2 of the 9 kernels
+    assert got[OPS] == pytest.approx(2)
     dev = program_trace.analyze(run)["device"]
     # the K4 call after the first step; too few events to fit a clock line
     assert dev["k4_lag_us"] == {"least": 20, "median": 20, "stamps": 1, "kernels": 1}
@@ -145,7 +147,7 @@ def test_the_records_clock_pair_maps_the_spans(recorded):
     moves nothing: the record's own pair maps the spans."""
     recorded(_record(STEPS, STAMPS))
     run = _run(KERNELS, late_ns=100_000)
-    assert _read(run)["decode_kernels_step.batch"] == pytest.approx(2)
+    assert _read(run)[OPS] == pytest.approx(2)
     dev = program_trace.analyze(run)["device"]
     assert dev["trusted"] and dev["stretch_anchor_off_us"] == pytest.approx(100)
 
@@ -165,7 +167,7 @@ def test_a_drifting_device_clock_is_laid_on_the_host_clock(recorded, late_us, dr
     run = _run(KERNELS + COPIES, late_us=late_us, drift=drift)
     got = program_trace.analyze(run)["device"]
     assert plain["trusted"] and got["trusted"]
-    assert got["kernels_a_step"] == plain["kernels_a_step"] == 2
+    assert got["ops_a_step"] == plain["ops_a_step"] == 2
     assert got["k4_lag_us"]["least"] == pytest.approx(plain["k4_lag_us"]["least"]) == 15
     assert set(got["idle_by_program_span"]) == set(plain["idle_by_program_span"])
     for k, v in plain["idle_by_program_span"].items():
@@ -175,19 +177,64 @@ def test_a_drifting_device_clock_is_laid_on_the_host_clock(recorded, late_us, dr
 
 
 def test_refused_clock_leaves_the_device_metric_out(recorded):
-    # the second K4 kernel, the one after the first step, starts before its stamp
+    """The second K4 kernel, the one after the first step, starts before its
+    stamp: the idle by program span is left unattributed, while the count of
+    device events a step, on the host clock alone, still reads."""
     recorded(_record(STEPS, [210, 1340]))
-    got = _read(_run(KERNELS))
-    assert got["decode_kernels_step.batch"] is None
+    run = _run(KERNELS)
+    got = _read(run)
+    assert got[OPS] == pytest.approx(2)
     assert all(got[name] is not None for name in SPANS)
+    dev = program_trace.analyze(run)["device"]
+    assert not dev["trusted"] and set(dev["idle_by_program_span"]) == {"unattributed"}
 
 
 def test_unequal_counts_leave_the_device_metric_out(recorded):
     recorded(_record(STEPS, STAMPS + [1500]))
     run = _run(KERNELS)
-    assert _read(run)["decode_kernels_step.batch"] is None
+    assert _read(run)[OPS] == pytest.approx(2)
     dev = program_trace.analyze(run)["device"]
     assert not dev["trusted"] and set(dev["idle_by_program_span"]) == {"unattributed"}
+
+
+@pytest.mark.parametrize("late_us", [-300.0, 2000.0])
+def test_ops_are_counted_where_the_device_clock_is_off(recorded, late_us):
+    """A device clock shifted by hundreds of microseconds or by 2 ms, with
+    too few events to fit its line.  Shifted back, the K4 kernel starts
+    before its stamp and the check refuses: the reader that counted device
+    starts inside the steps, where the check held, read None.  Shifted on,
+    the check holds but no start lies inside the second step: it read 0.
+    The count by each event's launching call reads the step's 2 events."""
+    recorded(_record(STEPS, STAMPS))
+    run = _run(KERNELS, late_us=late_us)
+    dev = program_trace.analyze(run)["device"]
+    assert dev["device_clock"] == {"offset_us": 0.0, "drift_ppm": 0.0}
+    assert dev["trusted"] is (late_us > 0)
+    if dev["trusted"]:
+        assert not any(1200 <= s + late_us <= 1900 for _, s, _ in KERNELS)
+    assert _read(run)[OPS] == pytest.approx(2)
+
+
+def test_clock_line_leaves_out_a_window_queued_behind_a_prefill():
+    """Forty events in each of 20 windows of a 4-s stretch, each started
+    10-22 us after its launch on a device clock 250 us ahead and drifting
+    450 ppm; in one window every event waited 125 ms behind a prefill's
+    GEMMs.  The line is the one fitted without that window; fitted with it,
+    it would be far off."""
+    a0, b0 = 250.0, 450e-6
+    events = []
+    for i in range(800):
+        c = 5000.0 * i                                   # launches 5 ms apart
+        lag = 10.0 + 3 * (i % 5) + (125_000.0 if 7 * 40 <= i < 8 * 40 else 0.0)
+        s = c + lag + a0 + b0 * c
+        events.append((s, s + 2.0, "gemv", c))
+    a, b = program_trace._device_clock(events)
+    clean = [e for k, e in enumerate(events) if not 7 * 40 <= k < 8 * 40]
+    assert (a, b) == pytest.approx(program_trace._device_clock(clean))
+    assert b * 1e6 == pytest.approx(b0 * 1e6, rel=1e-2)
+    least = np.array([(s, s - c) for k, (s, _, _, c) in enumerate(events) if k % 40 == 0])
+    b_all, _ = np.polyfit(*least.T, 1)
+    assert abs(b_all - b0) * 1e6 > 1000                  # the fit it replaced: off by ms/s
 
 
 def test_nothing_without_a_stretch_or_a_recorder(recorded, monkeypatch):
