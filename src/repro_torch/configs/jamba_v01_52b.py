@@ -8,7 +8,13 @@ FFN at even positions per the published block diagram simplification.
 
 Per request the transfer carries KV pages for the attention layers (which a
 prefix hit shortens) and, whole, each Mamba layer's SSM and conv state.
+
+``CONFIG`` and ``SMOKE`` are the JAX package's block; :func:`published` turns
+either into the block AI21 publishes (``modeling_jamba.py``), which Jamba
+v0.1, Jamba 1.5 Mini and Jamba2 Mini share.
 """
+
+import dataclasses
 
 from ..models.model import ModelConfig
 from ..models.moe import MoEConfig
@@ -34,3 +40,14 @@ SPEC = ArchSpec(arch_id="jamba-v0.1-52b", model=CONFIG, smoke=SMOKE,
                 source="[arXiv:2403.19887; hf]",
                 train_microbatches=16, optimizer="adafactor",
                 shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"))
+
+
+def published(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with the published block's four mechanisms, which JAX's
+    block lacks: attention with no positional encoding, RMSNorms of dt, B
+    and C inside every Mamba mixer, the top-k gates left unnormalised, and
+    no token dropped (``capacity_factor`` = E / k makes every expert's
+    capacity the whole dispatch group)."""
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k,
+                              renormalize=False)
+    return dataclasses.replace(cfg, attn_rope=False, mamba_inner_norms=True, moe=moe)

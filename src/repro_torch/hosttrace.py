@@ -1,4 +1,4 @@
-"""Host spans of the port's decode path, on the host's ``perf_counter_ns``
+"""Host spans of the port's decode path and prefill, on the host's ``perf_counter_ns``
 clock, for laying onto a device trace.
 
 A span is a name id (an index into ``NAMES``), a start and an end from
@@ -7,7 +7,7 @@ and two numeric attributes ``a`` and ``b``; a stamp is a name id, a time
 and the span open when it was taken.  Both are kept in columns, one list a
 field and one append a span, as ``sim/trace.py`` keeps its TracePlane.
 
-What the decode path records:
+What the serving path records:
 
     decode.step      DecodeEngine.step, the whole call        a = active lanes, b = lanes decoded
     decode.enqueue   the step's start through its argmax launch (child of decode.step)
@@ -19,14 +19,19 @@ What the decode path records:
     decode.graph     the staging copy and the replay of a decode step's CUDA graph
                      (models/decode_graph.py; child of decode.enqueue)   a = the K4 plan
                      bucket's top, b = 1 where the step captured the graph first
+    layer.mamba      a Mamba block (its norm, mixer and residual) of _period_seq (prefill)
+                     or of the eager _period_decode   a = layer, b = tokens mixed
+    prefill.run      PrefillEngine.run: the forward and its first token's read
+                     (the parent of that prefill's layer.mamba spans)   a = prompt tokens
 
 ``RECORDER`` is None while recording is off.  Every site reads it once and
 guards on ``is not None``, so with recording off a step pays one branch a
 site and allocates nothing.  Recording is on between :func:`enable` and
 :func:`disable`, and, without an explicit :func:`enable`, while a
-``torch.profiler`` session records: ``DecodeEngine.step`` asks
-:func:`for_step` at its start, which follows the profiler's state, so that
-the spans cover the steps whose kernels the device trace holds.
+``torch.profiler`` session records: ``DecodeEngine.step`` and
+``PrefillEngine.run`` ask :func:`for_step` at their start, which follows the
+profiler's state, so that the spans cover the steps and prefills whose
+kernels the device trace holds.
 :func:`last_profiled` returns the record of the last such session.
 """
 
@@ -37,8 +42,8 @@ import time
 from torch.autograd import profiler as _profiler
 
 NAMES = ("decode.step", "decode.enqueue", "decode.readback", "layer.attn", "layer.ffn",
-         "k4.launch", "decode.graph")
-STEP, ENQUEUE, READBACK, ATTN, FFN, K4_LAUNCH, GRAPH = range(len(NAMES))
+         "k4.launch", "decode.graph", "layer.mamba", "prefill.run")
+STEP, ENQUEUE, READBACK, ATTN, FFN, K4_LAUNCH, GRAPH, MAMBA, PREFILL = range(len(NAMES))
 
 _now = time.perf_counter_ns
 
@@ -124,7 +129,7 @@ def disable() -> HostTrace | None:
 
 
 def for_step() -> HostTrace | None:
-    """The recorder for a decode step about to start.  An explicit
+    """The recorder for a decode step or a prefill about to start.  An explicit
     :func:`enable` holds until :func:`disable`; otherwise recording follows
     ``torch.profiler``: on, into a new record, once a session records, and
     off at the first step after it stopped."""
@@ -140,5 +145,5 @@ def for_step() -> HostTrace | None:
 
 def last_profiled() -> HostTrace | None:
     """The record of the last ``torch.profiler`` session that decode steps
-    ran in (still growing while the session records), or None."""
+    or prefills ran in (still growing while the session records), or None."""
     return _profiled

@@ -48,6 +48,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> 
     return rotate(x, cos, sin)
 
 
+class ConfigOptions:
+    """Options of a frozen config dataclass that the JAX package's config
+    lacks.  Each is a ``dataclasses.InitVar`` with its default, named in
+    ``OPTIONS`` and kept on the instance by :meth:`_keep` in
+    ``__post_init__``: the constructor and ``dataclasses.replace`` take it,
+    but it is no field, so ``dataclasses.fields`` and ``asdict`` stay the
+    JAX config's.  Equality and the hash count the options with the fields
+    (the dataclass is made with ``eq=False``)."""
+
+    OPTIONS: tuple[str, ...] = ()
+
+    def _keep(self, *values) -> None:
+        for name, value in zip(self.OPTIONS, values):
+            object.__setattr__(self, name, value)
+
+    def _key(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)) + \
+            tuple(getattr(self, name) for name in self.OPTIONS)
+
+    def __eq__(self, other) -> bool:
+        return type(other) is type(self) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+
 @dataclasses.dataclass(frozen=True)
 class InitSpec:
     """A parameter's shape and init: N(0, scale^2), zeros or ones."""

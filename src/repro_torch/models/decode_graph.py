@@ -1,9 +1,9 @@
 """CUDA graphs of the writing decode step: one a (decode engine, K4 plan
 bucket).
 
-An eager decode step of an attention decoder launches ~60-100 kernels a
-layer, each a few microseconds of device time behind ~20 us of host time,
-so the host paces it.  :class:`DecodeGraphs` captures the step's whole
+An eager decode step of an attention decoder (or of the Mamba hybrid)
+launches ~60-100 kernels a layer, each a few microseconds of device time
+behind ~20 us of host time, so the host paces it.  :class:`DecodeGraphs` captures the step's whole
 chain of kernels, :func:`models.model.decode_body` (the same kernels in the
 same order, with the same weights, caches and dtypes, K4 included), and
 replays one graph a step.
@@ -57,6 +57,7 @@ from .model import Model, _positions, decode_body
 from .sharding import current_mesh, current_rules
 
 BUCKET_FLOOR = 256                        # the smallest bucket's top
+GRAPHED_BLOCKS = ("attn", "mamba")
 GRAPHED_FFNS = ("dense", "moe", "moe_res")
 
 _POOL = None     # the memory pool every graph of the process takes its intermediates from
@@ -77,8 +78,9 @@ def bucket_top(n: int, cache_len: int) -> int:
 
 def eager_reason(model: Model, cache: dict, update_cache: bool) -> str | None:
     """Why a decode step of ``model`` over ``cache`` runs eagerly, or None
-    where its graph engages: the writing decode of a decoder whose every
-    block is attention with a dense or MoE FFN, at a scalar position, its
+    where its graph engages: the writing decode of a decoder whose blocks
+    are attention, or attention and Mamba (the hybrid's mixers write their
+    states in place), with dense or MoE FFNs, at a scalar position, its
     weights and cache on a CUDA device, outside mesh rules."""
     cfg = model.cfg
     if not update_cache:
@@ -87,9 +89,11 @@ def eager_reason(model: Model, cache: dict, update_cache: bool) -> str | None:
         return "mesh rules"
     if cfg.is_enc_dec:
         return "encoder-decoder"
-    blocks = sorted(set(cfg.block_pattern) - {"attn"})
+    blocks = sorted(set(cfg.block_pattern) - set(GRAPHED_BLOCKS))
     if blocks:
         return f"{'/'.join(blocks)} blocks"
+    if cfg.is_attention_free:
+        return "no attention block"
     ffns = sorted(set(cfg.ffn_pattern) - set(GRAPHED_FFNS))
     if ffns:
         return f"{'/'.join(ffns)} FFN"

@@ -43,6 +43,14 @@ requiring grad; :func:`forward_train` casts them per call as JAX does
 plain version and, with ``cfg.remat``, recomputes each period in the
 backward pass.  The serving entry points are unchanged by it.
 
+Three options the JAX package's config lacks give the published Jamba block
+(``configs/jamba_v01_52b.py::published``); each defaults to JAX's
+behaviour, and none is a dataclass field (``common.ConfigOptions``):
+``ModelConfig.attn_rope`` False runs attention with no positional encoding,
+``ModelConfig.mamba_inner_norms`` True gives each Mamba mixer its dt, B and
+C RMSNorms (``ssm.py``), and ``MoEConfig.renormalize`` False keeps the
+router's top-k probabilities unnormalised (``moe.py``).
+
 An encoder-decoder (``n_enc_layers`` > 0, seamless-m4t-medium) adds an
 encoder of ``n_enc_layers`` periods of bidirectional attention (with RoPE)
 and a dense FFN (``enc_layers.b0.*``, ``enc_layers.f0.*``), its final norm
@@ -77,7 +85,7 @@ from .attention import (
     kernel_decode_attention,
     seq_sharded_decode_attention,
 )
-from .common import InitSpec, rms_norm, rope_tables, rotate, swiglu
+from .common import ConfigOptions, InitSpec, rms_norm, rope_tables, rotate, swiglu
 from .moe import MoEConfig, moe_ffn, moe_param_specs, moe_residual_param_specs, moe_with_residual
 from .rwkv import (
     HEAD_DIM as RWKV_HEAD_DIM,
@@ -103,8 +111,8 @@ BLOCKS = ("attn", "mamba", "rwkv")
 FFNS = ("dense", "moe", "moe_res", "none")
 
 
-@dataclasses.dataclass(frozen=True)
-class ModelConfig:
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelConfig(ConfigOptions):
     name: str
     d_model: int
     n_layers: int
@@ -125,10 +133,16 @@ class ModelConfig:
     attn_chunk: int = 1024
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = False                # training: recompute each period in backward
+    # options JAX's config lacks (``ConfigOptions``; the module's docstring)
+    attn_rope: dataclasses.InitVar[bool] = True
+    mamba_inner_norms: dataclasses.InitVar[bool] = False
 
-    def __post_init__(self):
+    OPTIONS = ("attn_rope", "mamba_inner_norms")
+
+    def __post_init__(self, attn_rope, mamba_inner_norms):
         assert len(self.block_pattern) == len(self.ffn_pattern)
         assert self.n_layers % len(self.block_pattern) == 0
+        self._keep(bool(attn_rope), bool(mamba_inner_norms))
 
     @property
     def n_periods(self) -> int:
@@ -160,7 +174,8 @@ def _positions(cfg: ModelConfig):
 def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, InitSpec]:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if kind == "mamba":
-        return {"ln": InitSpec((d,), kind="ones"), **mamba_param_specs(d)}
+        return {"ln": InitSpec((d,), kind="ones"),
+                **mamba_param_specs(d, cfg.mamba_inner_norms)}
     if kind == "rwkv":
         return {"ln1": InitSpec((d,), kind="ones"), "ln2": InitSpec((d,), kind="ones"),
                 **rwkv_param_specs(d, cfg.d_ff)}
@@ -360,7 +375,9 @@ def _take(node, i: int, gather) -> dict:
             else v[i] if gather is None else gather(v[i]) for k, v in node.items()}
 
 
-def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, rope):
+    """q, k (RoPE-turned by ``rope``'s (cos, sin), where it is not None)
+    and v of the attention block."""
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     q = split_dim(xn @ p["wq"], -1, (h, dh))
@@ -369,12 +386,14 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return rotate(q, cos, sin), rotate(k, cos, sin), v
+    if rope is None:
+        return q, k, v
+    return rotate(q, *rope), rotate(k, *rope), v
 
 
 def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, rope, causal: bool):
     """The attention block over a sequence: (its output, k, v)."""
-    q, k, v = _qkv(cfg, p, x, *rope)
+    q, k, v = _qkv(cfg, p, x, rope)
     q = constrain(q, "batch", None, "heads", None)
     att = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal)
     return merge_dims(att, 2) @ p["wo"], k, v
@@ -396,9 +415,16 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor):
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
-    """RoPE tables for the attention blocks; None for an attention-free model."""
-    return None if cfg.is_attention_free else rope_tables(positions, cfg.d_head,
-                                                          cfg.rope_theta)
+    """RoPE tables for the attention blocks; None for an attention-free model
+    and for attention without positional encoding (``attn_rope`` False)."""
+    if cfg.is_attention_free or not cfg.attn_rope:
+        return None
+    return rope_tables(positions, cfg.d_head, cfg.rope_theta)
+
+
+def _mamba_eps(cfg: ModelConfig) -> float | None:
+    """The eps of the Mamba mixers' dt/B/C norms; None where they have none."""
+    return cfg.norm_eps if cfg.mamba_inner_norms else None
 
 
 def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
@@ -594,8 +620,9 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
     ``ops.rwkv_scan``, or, to train, through its plain version."""
     cfg = model.cfg
     eps = cfg.norm_eps
-    s = x.shape[1]
+    b, s = x.shape[:2]
     aux = 0.0
+    tr = hosttrace.RECORDER
     for i, blk, ffn, has_ffn in _positions(cfg):
         p = _slice(model.layers[f"b{i}"], per)
         if blk == "attn":
@@ -609,11 +636,15 @@ def _period_seq(model: Model, per: int, x: torch.Tensor, cache: dict | None, rop
                 att = cross_attention(_cross_q(cfg, cp, x), cross[i][0][per], cross[i][1][per])
                 x = x + merge_dims(att, 2) @ cp["wo"]
         elif blk == "mamba":
-            out, state = mamba_forward(p, rms_norm(x, p["ln"], eps))
+            if tr is not None:
+                i_mamba = tr.begin(hosttrace.MAMBA, per * len(cfg.block_pattern) + i, b * s)
+            out, state = mamba_forward(p, rms_norm(x, p["ln"], eps), _mamba_eps(cfg))
             x = x + out
             if cache is not None:
                 cache[f"ssm{i}"][per] = state["ssm"]
                 cache[f"conv{i}"][per] = state["conv"]
+            if tr is not None:
+                tr.end(i_mamba)
         else:
             out, (wkv, last) = rwkv_time_mix(p, rms_norm(x, p["ln1"], eps),
                                              scan=ref.rwkv_scan_ref if train else None)
@@ -781,7 +812,7 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
             i_attn = tr.begin(hosttrace.ATTN, per * len(cfg.block_pattern) + i)
         p = _slice(model.layers[f"b{i}"], per)
         if blk == "attn":
-            q, k, v = _qkv(cfg, p, x, *rope)
+            q, k, v = _qkv(cfg, p, x, rope)
             k_cache, v_cache = cache[f"k{i}"][per], cache[f"v{i}"][per]
             if new is not None:
                 att = _readonly_attention(cfg, q, k, v, k_cache, v_cache, pos, slots)
@@ -807,12 +838,16 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
             if tr is not None:
                 tr.end(i_attn)
         elif blk == "mamba":
+            if tr is not None:
+                i_mamba = tr.begin(hosttrace.MAMBA, per * len(cfg.block_pattern) + i, b)
             ssm, conv = cache[f"ssm{i}"][per], cache[f"conv{i}"][per]
             out, state = mamba_decode_step(p, rms_norm(x, p["ln"], eps),
-                                           {"ssm": ssm, "conv": conv})
+                                           {"ssm": ssm, "conv": conv}, _mamba_eps(cfg))
             x = x + out
             keep(f"ssm{i}", state["ssm"], ssm)
             keep(f"conv{i}", state["conv"], conv)
+            if tr is not None:
+                tr.end(i_mamba)
         else:
             wkv, sa, sc = cache[f"wkv{i}"][per], cache[f"sa{i}"][per], cache[f"sc{i}"][per]
             out, new_wkv, last = rwkv_time_mix_step(p, rms_norm(x, p["ln1"], eps), wkv, sa)

@@ -2,9 +2,13 @@
 
 Top-k routing with a per-expert token capacity ``cap = max(int(T * k / E *
 cf), 1)``; a (token, k) slot past its expert's capacity is dropped (its
-combine weight is zero).  Slot positions come from a cumulative count over
-the token-major ``(T*k)`` order, so a lower token index, then a lower k,
-wins a slot.  Variants: plain top-k (granite) and MoE plus a parallel dense
+combine weight is zero).  At ``cf = E / k`` the capacity is T (exactly, for E
+and k powers of two): no slot is dropped, the published Jamba block's full
+capacity.  The k gates are the top-k softmax probabilities renormalised to
+sum to 1 (granite's rule, and JAX's), or, with ``renormalize=False``, as they
+are (Jamba's).  Slot positions come from a cumulative count over the
+token-major ``(T*k)`` order, so a lower token index, then a lower k, wins a
+slot.  Variants: plain top-k (granite) and MoE plus a parallel dense
 FFN (arctic, ``moe_with_residual``).
 
 Every op is deterministic on the card: no atomics.  Dispatch writes each
@@ -22,18 +26,26 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .common import InitSpec, swiglu
+from .common import ConfigOptions, InitSpec, swiglu
 from .sharding import merge_dims
 
 
-@dataclasses.dataclass(frozen=True)
-class MoEConfig:
+@dataclasses.dataclass(frozen=True, eq=False)
+class MoEConfig(ConfigOptions):
     n_experts: int
     top_k: int
     d_expert: int            # expert hidden size
     capacity_factor: float = 1.25
     dense_residual: bool = False  # arctic-style parallel dense FFN
     dispatch_chunks: int = 1      # token-chunked dispatch (memory vs launch)
+    # an option JAX's config lacks (``ConfigOptions``): False keeps the top-k
+    # softmax probabilities as the gates, unnormalised
+    renormalize: dataclasses.InitVar[bool] = True
+
+    OPTIONS = ("renormalize",)
+
+    def __post_init__(self, renormalize):
+        self._keep(bool(renormalize))
 
 
 def moe_param_specs(d_model: int, cfg: MoEConfig) -> dict[str, InitSpec]:
@@ -72,14 +84,18 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple[torch.Tensor
     return _moe_ffn_once(x, params, cfg)
 
 
-def route(xf: torch.Tensor, router: torch.Tensor, top_k: int):
+def route(xf: torch.Tensor, router: torch.Tensor, top_k: int, renormalize: bool = True):
     """(probs (T, E), gates (T, k), experts (T, k)) in f32 from the router
     up-cast to f32.  Experts are in descending probability, the lower index
-    first on a tie (``lax.top_k``'s order), which a stable sort gives."""
+    first on a tie (``lax.top_k``'s order), which a stable sort gives.  The
+    gates are the k probabilities over their sum, or, without
+    ``renormalize``, the probabilities themselves."""
     probs = torch.softmax(xf.float() @ router.float(), dim=-1)
     gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, experts = gates[:, :top_k], experts[:, :top_k]
-    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), experts
+    if renormalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates, experts
 
 
 def slot_positions(experts: torch.Tensor, n_experts: int):
@@ -101,7 +117,7 @@ def _moe_ffn_once(x: torch.Tensor, params: dict,
     e, k = cfg.n_experts, cfg.top_k
     cap = max(int(t * k / e * cfg.capacity_factor), 1)
     xf = x.reshape(t, d)
-    probs, gates, experts = route(xf, params["router"], k)
+    probs, gates, experts = route(xf, params["router"], k, cfg.renormalize)
 
     flat_e = experts.reshape(-1)
     pos, counts = slot_positions(experts, e)

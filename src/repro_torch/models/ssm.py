@@ -13,6 +13,12 @@ f32 where it is used, and the scan and its state are f32.  Prefill casts
 dt and the conv output to f32 before it multiplies them; decode multiplies
 ``dt * conv`` in the compute dtype and casts the product, as JAX does.
 
+The published Jamba mixer (AI21's ``JambaMambaMixer``) also normalises dt,
+B and C after ``x_proj``, each by an RMSNorm with a learned scale
+(``dt_norm``, ``b_norm``, ``c_norm``), before ``dt_proj``: the mixers take
+``inner_norm_eps`` for such a layer (None, JAX's block, for none), in
+prefill and decode alike.
+
 The scan (a ``lax.scan`` in JAX, and a ``jax.checkpoint``-ed two-level one
 for long prompts, which only saves training memory and sums in the same
 order) is plain PyTorch here; the JAX package has no Pallas kernel for it.
@@ -29,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import InitSpec
+from .common import InitSpec, rms_norm
 from .sharding import local_region
 
 D_STATE = 16
@@ -39,10 +45,14 @@ D_CONV = 4
 TIME_BLOCK = 256
 
 
-def mamba_param_specs(d_model: int) -> dict[str, InitSpec]:
-    """One layer's parameters, named and shaped as in the JAX package."""
+def mamba_param_specs(d_model: int, inner_norms: bool = False) -> dict[str, InitSpec]:
+    """One layer's parameters, named and shaped as in the JAX package; with
+    ``inner_norms`` the scales of the dt, B and C norms too."""
     d_inner = 2 * d_model
     dt_rank = max(d_model // 16, 1)
+    norms = {"dt_norm": InitSpec((dt_rank,), kind="ones"),
+             "b_norm": InitSpec((D_STATE,), kind="ones"),
+             "c_norm": InitSpec((D_STATE,), kind="ones")} if inner_norms else {}
     return {
         "in_proj": InitSpec((d_model, 2 * d_inner)),
         "conv_w": InitSpec((D_CONV, d_inner)),
@@ -53,14 +63,20 @@ def mamba_param_specs(d_model: int) -> dict[str, InitSpec]:
         "a_log": InitSpec((d_inner, D_STATE), kind="ones"),
         "d_skip": InitSpec((d_inner,), kind="ones"),
         "out_proj": InitSpec((d_inner, d_model)),
+        **norms,
     }
 
 
-def _ssm_coeffs(params: dict, x_in: torch.Tensor):
-    """x_in (..., d_inner) -> (dt, B, C), the input-dependent coefficients."""
+def _ssm_coeffs(params: dict, x_in: torch.Tensor, inner_norm_eps: float | None):
+    """x_in (..., d_inner) -> (dt, B, C), the input-dependent coefficients;
+    with ``inner_norm_eps`` dt (before ``dt_proj``), B and C each RMSNormed."""
     dt_rank = params["dt_proj"].shape[0]
     proj = x_in @ params["x_proj"]
     dt, bmat, cmat = torch.split(proj, [dt_rank, D_STATE, D_STATE], dim=-1)
+    if inner_norm_eps is not None:
+        dt = rms_norm(dt, params["dt_norm"], inner_norm_eps)
+        bmat = rms_norm(bmat, params["b_norm"], inner_norm_eps)
+        cmat = rms_norm(cmat, params["c_norm"], inner_norm_eps)
     dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])
     return dt, bmat, cmat
 
@@ -78,7 +94,8 @@ def _a(params: dict) -> torch.Tensor:
     return -torch.exp(params["a_log"].float())        # (di, N) f32
 
 
-def mamba_forward(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def mamba_forward(params: dict, x: torch.Tensor,
+                  inner_norm_eps: float | None = None) -> tuple[torch.Tensor, dict]:
     """x (B, S, d_model) -> (out (B, S, d_model), final state)."""
     b, s, _ = x.shape
     d_inner = params["conv_w"].shape[1]
@@ -86,7 +103,7 @@ def mamba_forward(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     pad = torch.zeros((b, D_CONV - 1, d_inner), dtype=x_in.dtype, device=x.device)
     xc = torch.cat([pad, x_in], dim=1)
     conv = F.silu(_conv(xc, params["conv_w"], s) + params["conv_b"])
-    dt, bmat, cmat = _ssm_coeffs(params, conv)         # (B,S,di), (B,S,N), (B,S,N)
+    dt, bmat, cmat = _ssm_coeffs(params, conv, inner_norm_eps)   # (B,S,di), (B,S,N) x 2
     rows, di = ("batch", None, None), ("batch", None, "ff")
     y, state = local_region(_selective_scan, (di, di, rows, rows, ("ff", None)),
                             (di, ("batch", "ff", None)))(conv, dt, bmat, cmat, _a(params))
@@ -125,13 +142,14 @@ def _selective_scan(conv, dt, bmat, cmat, a):
     return torch.cat(ys).transpose(0, 1), state          # (B, S, di)
 
 
-def mamba_decode_step(params: dict, x: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
+def mamba_decode_step(params: dict, x: torch.Tensor, state: dict,
+                      inner_norm_eps: float | None = None) -> tuple[torch.Tensor, dict]:
     """x (B, 1, d_model); state {"ssm": (B, di, N) f32, "conv": (B, D_CONV-1,
     di)} -> (out (B, 1, d_model), new state)."""
     x_in, z = (x @ params["in_proj"]).chunk(2, dim=-1)          # (B, 1, di)
     xc = torch.cat([state["conv"], x_in], dim=1)               # (B, D_CONV, di)
     conv = F.silu(_conv(xc, params["conv_w"], 1)[:, 0] + params["conv_b"])   # (B, di)
-    dt, bmat, cmat = _ssm_coeffs(params, conv)
+    dt, bmat, cmat = _ssm_coeffs(params, conv, inner_norm_eps)
     da = torch.exp(dt.float()[..., None] * _a(params))
     new_ssm = state["ssm"] * da + (dt * conv).float()[..., None] * bmat.float()[:, None, :]
     y = torch.einsum("bin,bn->bi", new_ssm, cmat.float()).to(x.dtype)

@@ -29,10 +29,15 @@ class PrefillEngine:
         self.cache_len = cache_len
 
     def run(self, request_id: int, tokens: np.ndarray) -> PrefillResult:
+        tr = hosttrace.for_step()
+        if tr is not None:
+            i_run = tr.begin(hosttrace.PREFILL, len(tokens))
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.model.device)[None, :]
         logits, cache = prefill(self.model, toks, cache_len=self.cache_len)
         nxt = int(torch.argmax(logits[0, -1]))
+        if tr is not None:
+            tr.end(i_run)
         kv_bytes = sum(v.numel() * v.element_size()
                        for k, v in cache.items() if k != "pos")
         return PrefillResult(request_id, cache, logits, nxt, kv_bytes)

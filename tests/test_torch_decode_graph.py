@@ -2,8 +2,8 @@
 
 On the CPU: the buckets cover every length, the device-only step body at a
 bucket's top is the eager scalar step bit for bit (a dense and a MoE smoke
-model, on both sides of two bucket edges), the rule that decides where a
-graph engages, and the trace names.  On the card (``gpu``, skipped without
+model and the published Jamba hybrid's, on both sides of two bucket edges),
+the rule that decides where a graph engages, and the trace names.  On the card (``gpu``, skipped without
 one): a profiler session round replays records every kernel of the graph
 after its stamp, replays against the eager step over bucket edges, and the
 engine's counts.
@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import hosttrace
 from repro_torch.configs import get_spec
+from repro_torch.configs.jamba_v01_52b import published
 from repro_torch.kernels import build
 from repro_torch.models import Model, decode_step, init_random_, make_decode_cache
 from repro_torch.models.decode_graph import DecodeGraphs, bucket_top, eager_reason
@@ -28,12 +29,13 @@ from repro_torch.models.model import decode_body
 from repro_torch.models.sharding import axis_rules
 from repro_torch.serving import DecodeEngine, PrefillEngine
 
-ARCHS = ["internlm2-20b", "granite-moe-1b-a400m"]   # a dense and a MoE FFN
+JAMBA = "jamba-v0.1-52b published"        # the published block of configs/jamba_v01_52b.py
+ARCHS = ["internlm2-20b", "granite-moe-1b-a400m", JAMBA]   # dense, MoE, Mamba + attention
 CACHE_LEN = 1024
 SLOTS = 4
 EDGES = [254, 255, 256, 511, 512]      # positions p: lengths p + 1 each side of 256 and 512
 GRAPHED = ["internlm2-20b", "granite-moe-1b-a400m", "qwen3-14b", "phi3-medium-14b",
-           "smollm-135m", "llama3-70b", "internvl2-76b", "arctic-480b"]
+           "smollm-135m", "llama3-70b", "internvl2-76b", "arctic-480b", "jamba-v0.1-52b"]
 
 
 @pytest.fixture(autouse=True)
@@ -43,8 +45,14 @@ def recorder_off():
     hosttrace.disable()
 
 
+def _smoke(arch):
+    if arch == JAMBA:
+        return published(get_spec("jamba-v0.1-52b").smoke)
+    return get_spec(arch).smoke
+
+
 def _model(arch, device="cpu", dtype=torch.float32):
-    cfg = dataclasses.replace(get_spec(arch).smoke, compute_dtype=dtype)
+    cfg = dataclasses.replace(_smoke(arch), compute_dtype=dtype)
     return init_random_(Model(cfg, device=device), 0)
 
 
@@ -114,18 +122,25 @@ def _meta(arch, **change):
 
 @pytest.mark.parametrize("arch", GRAPHED)
 def test_attention_decoders_wait_only_for_a_card(arch):
-    """Every attention-only decoder with a dense or MoE FFN passes the rule
-    but for the device: off a CUDA device its step runs eagerly."""
+    """Every decoder of attention blocks, or of attention and Mamba blocks,
+    with dense or MoE FFNs passes the rule but for the device: off a CUDA
+    device its step runs eagerly."""
     model, cache = _meta(arch)
     assert eager_reason(model, cache, True) == "not on a CUDA device"
 
 
 @pytest.mark.parametrize("arch,reason", [
-    ("jamba-v0.1-52b", "mamba blocks"), ("rwkv6-3b", "rwkv blocks"),
-    ("seamless-m4t-medium", "encoder-decoder")])
+    ("rwkv6-3b", "rwkv blocks"), ("seamless-m4t-medium", "encoder-decoder")])
 def test_other_blocks_run_eagerly(arch, reason):
     model, cache = _meta(arch)
     assert eager_reason(model, cache, True) == reason
+
+
+def test_mamba_blocks_need_an_attention_block():
+    """A graph's buckets are those of the K/V cache: a model of Mamba blocks
+    alone has none, and decodes eagerly."""
+    model, cache = _meta("jamba-v0.1-52b", block_pattern=("mamba",) * 8)
+    assert eager_reason(model, cache, True) == "no attention block"
 
 
 def test_readonly_mesh_and_per_slot_decodes_run_eagerly():
@@ -161,6 +176,8 @@ def test_trace_names_are_appended():
     assert (hosttrace.STEP, hosttrace.ENQUEUE, hosttrace.READBACK, hosttrace.ATTN,
             hosttrace.FFN, hosttrace.K4_LAUNCH) == tuple(range(6))
     assert hosttrace.NAMES[hosttrace.GRAPH] == "decode.graph" and hosttrace.GRAPH == 6
+    assert hosttrace.NAMES[7:] == ("layer.mamba", "prefill.run")
+    assert (hosttrace.MAMBA, hosttrace.PREFILL) == (7, 8)
 
 
 # ------------------------------------------------------------------ card

@@ -1,8 +1,9 @@
 """The decode path's host spans (``repro_torch.hosttrace``): recording
 changes no result, each step's spans nest as documented, nothing is
 recorded with the recorder off, and recording follows a ``torch.profiler``
-session.  A dense and a MoE smoke model, on the CPU; the ``gpu`` case holds
-the K4 launch stamps to ``build.LAUNCHES`` on the card.
+session.  A dense and a MoE smoke model, on the CPU; the published Jamba
+hybrid's smoke model for the prefill's and the Mamba blocks' spans; the
+``gpu`` case holds the K4 launch stamps to ``build.LAUNCHES`` on the card.
 
 This file imports no JAX: the machine with the card has none.
 """
@@ -16,11 +17,15 @@ import torch
 
 from repro_torch import hosttrace
 from repro_torch.configs import get_spec
+from repro_torch.configs.jamba_v01_52b import published
 from repro_torch.kernels import build
 from repro_torch.models import Model, decode_step, init_random_
 from repro_torch.serving import DecodeEngine, DisaggregatedCluster, PrefillEngine, ServeRequest
 
 ARCHS = ["internlm2-20b", "granite-moe-1b-a400m"]   # a dense and a MoE FFN
+# the published block of configs/jamba_v01_52b.py: one period of attention at
+# position 4 and seven Mamba blocks, dense and MoE FFNs in turn
+JAMBA = "jamba-v0.1-52b published"
 CACHE_LEN = 64
 SLOTS = 4
 
@@ -33,8 +38,21 @@ def recorder_off():
 
 
 def _model(arch, device="cpu"):
-    cfg = dataclasses.replace(get_spec(arch).smoke, compute_dtype=torch.float32)
+    smoke = published(get_spec("jamba-v0.1-52b").smoke) if arch == JAMBA else \
+        get_spec(arch).smoke
+    cfg = dataclasses.replace(smoke, compute_dtype=torch.float32)
     return init_random_(Model(cfg, device=device), 0)
+
+
+def _layers(cfg, lanes):
+    """(name, layer, b) of each block and FFN span an eager step records."""
+    out = []
+    for layer, (blk, ffn) in enumerate(zip(cfg.block_pattern * cfg.n_periods,
+                                           cfg.ffn_pattern * cfg.n_periods)):
+        out.append((hosttrace.ATTN, layer, 0) if blk == "attn" else
+                   (hosttrace.MAMBA, layer, lanes))
+        out.append((hosttrace.FFN, layer, int(ffn != "dense")))
+    return out
 
 
 def _prompts(vocab, lengths, seed=3):
@@ -89,7 +107,7 @@ def test_serve_is_the_same_with_the_recorder_on(arch):
     assert [sorted(w) for w in walls_on] == [sorted(w) for w in walls_off]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [JAMBA])
 def test_logits_and_cache_are_the_same_with_the_recorder_on(arch):
     de = _engine(_model(arch))
     cache = de.cache
@@ -107,7 +125,7 @@ def test_logits_and_cache_are_the_same_with_the_recorder_on(arch):
         assert torch.equal(c_on[k], v) if isinstance(v, torch.Tensor) else c_on[k] == v, k
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [JAMBA])
 def test_each_step_nests_its_spans(arch):
     model = _model(arch)
     cfg = model.cfg
@@ -128,9 +146,7 @@ def test_each_step_nests_its_spans(arch):
         assert rec.t0[i] <= rec.t0[enq] <= rec.t1[enq] <= rec.t0[rb] <= rec.t1[rb] <= rec.t1[i]
         assert _children(rec, rb) == []
         layers = _children(rec, enq)
-        want = [(name, layer, b) for layer in range(cfg.n_layers)
-                for name, b in ((hosttrace.ATTN, 0), (hosttrace.FFN, int(cfg.moe is not None)))]
-        assert [(rec.name[j], rec.a[j], rec.b[j]) for j in layers] == want
+        assert [(rec.name[j], rec.a[j], rec.b[j]) for j in layers] == _layers(cfg, SLOTS)
         ends = [rec.t0[enq]] + [t for j in layers for t in (rec.t0[j], rec.t1[j])] + \
             [rec.t1[enq]]
         assert ends == sorted(ends)                                  # in order, no overlap
@@ -139,7 +155,7 @@ def test_each_step_nests_its_spans(arch):
     assert rec.stamp_t == []
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [JAMBA])
 def test_nothing_is_recorded_with_the_recorder_off(arch):
     model = _model(arch)
     before = hosttrace.last_profiled()
@@ -177,6 +193,47 @@ def test_an_explicit_recorder_outlives_a_profiler_session():
     _steps(de, 1)
     assert hosttrace.disable() is rec
     assert [rec.name[i] for i in range(len(rec))].count(hosttrace.STEP) == 2
+
+
+def test_prefill_records_its_mamba_blocks():
+    """A prefill records ``prefill.run`` (a = its prompt's tokens) at the
+    top, and inside it one ``layer.mamba`` span a Mamba block (a = layer, b
+    = tokens mixed), in order, each closed inside its parent."""
+    model = _model(JAMBA)
+    cfg = model.cfg
+    pe = PrefillEngine(0, model, CACHE_LEN)
+    prompt = _prompts(cfg.vocab_size, (13,))[0]
+    rec = hosttrace.enable()
+    pe.run(0, prompt)
+    assert hosttrace.disable() is rec
+    assert rec.name[0] == hosttrace.PREFILL and rec.parent[0] == -1
+    assert (rec.a[0], rec.b[0]) == (13, 0)
+    kids = _children(rec, 0)
+    assert len(rec) == 1 + len(kids)
+    want = [(hosttrace.MAMBA, layer, 13) for layer in range(cfg.n_layers)
+            if cfg.block_pattern[layer % len(cfg.block_pattern)] == "mamba"]
+    assert [(rec.name[j], rec.a[j], rec.b[j]) for j in kids] == want
+    ends = [rec.t0[0]] + [t for j in kids for t in (rec.t0[j], rec.t1[j])] + [rec.t1[0]]
+    assert ends == sorted(ends)
+    assert rec.stamp_t == []
+
+
+def test_a_prefill_that_opens_a_profiler_session_records():
+    """``PrefillEngine.run`` follows a profiler session as a decode step
+    does: a prefill first in the session starts the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _model(JAMBA)
+    pe = PrefillEngine(0, model, CACHE_LEN)
+    prompt = _prompts(model.cfg.vocab_size, (9,))[0]
+    with profile(activities=[ProfilerActivity.CPU]):
+        pe.run(0, prompt)
+    rec = hosttrace.last_profiled()
+    assert rec is not None and hosttrace.RECORDER is rec
+    assert [rec.name[i] for i in range(len(rec)) if rec.parent[i] == -1] == [hosttrace.PREFILL]
+    assert rec.a[0] == 9 and all(t >= 0 for t in rec.t1)
+    pe.run(1, prompt)               # the first prefill after the session switches it off
+    assert hosttrace.RECORDER is None and hosttrace.last_profiled() is rec
 
 
 @pytest.fixture
