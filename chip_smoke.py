@@ -9,13 +9,14 @@
                                     # decode at qwen3-14b's width and phase 12
     python3 chip_smoke.py --dryrun  # phases 1-2, K4's checks (its self term and
                                     # partials too), phase 5b and phase 12c
+    python3 chip_smoke.py --moe     # phases 1-2, K8's checks and times, phase 8f
 
 Phases, in order; every check asserts and any failure exits non-zero:
 
   1. device   name, count, ``nvidia-smi`` name and power limit
   2. build    nvcc every kernel source in parallel; ptxas registers/spills,
-              and the whole -Xptxas -v of netkv_score.cu, flash_decode.cu and
-              rwkv_scan.cu
+              and the whole -Xptxas -v of netkv_score.cu, flash_decode.cu,
+              rwkv_scan.cu and moe_decode.cu
   3. kernels  each kernel against its plain PyTorch version at the shapes of
               the serving path, with times for the kernel, the plain version
               and the one PyTorch call that computes the same function;
@@ -41,7 +42,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
               at pos 2056 beside the scalar launch and SDPA;
               rwkv_scan also at ragged
               T, B 2, dh 16-128 across its column groups and in bf16; both
-              deterministic (two calls bitwise equal)
+              deterministic (two calls bitwise equal); moe_decode (K8) at
+              Jamba2-Mini's decode shape on routings of 2, 4, 8 and 16
+              experts (timed beside the routed experts' bytes and the bmm
+              path over all 16), NaN in the unrouted experts' weights
+              unread, and at ragged shapes in bf16 and f32
   4. match    the serving path on the card against the same path on the CPU
               (the plain versions), the smoke configs of qwen3-14b, rwkv6,
               granite-moe, arctic (MoE with a dense residual), phi3,
@@ -88,6 +93,13 @@ Phases, in order; every check asserts and any failure exits non-zero:
               and the Mamba mixer alone at full width (a 2048-token prefill
               and a 4-slot decode step: device and wall ms, runtime
               launches a call, bound)
+ 8f. serve    the published Jamba block (no drop) at the same 16 layers,
+              after phase 8c's cluster is freed, on the same workload
+              (lane 0 of a 4-lane decode engine active, lanes 1-3 idle as
+              serve() leaves them): phase 5's checks, and moe_decode (K8)
+              launched 8 MoE layers x decode steps, where phase 8c's
+              capacity factor 1.25 launches it never; the distinct experts
+              each decode MoE layer routed to
  8d. model    seamless-m4t-medium at full width, nothing cut (12 encoder and
               12 decoder layers, 977,758,208 parameters): encode 4 x 2048
               stub frames, prefill 4 x 256 tokens with that memory at
@@ -183,6 +195,7 @@ REPLACES = {
     "waterfill_progressive": "src/repro/kernels/waterfill.py:52",
     "waterfill_fast": "src/repro/kernels/waterfill.py:182",
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:28",
+    "moe_decode": "none: src/repro/models/moe.py:113 runs the experts as XLA einsums",
 }
 SOURCE = {
     "netkv_score_cohort": "src/repro_torch/csrc/netkv_score.cu",
@@ -192,9 +205,10 @@ SOURCE = {
     "waterfill_progressive": "src/repro_torch/csrc/waterfill.cu",
     "waterfill_fast": "src/repro_torch/csrc/waterfill.cu",
     "rwkv_scan": "src/repro_torch/csrc/rwkv_scan.cu",
+    "moe_decode": "src/repro_torch/csrc/moe_decode.cu",
 }
 KERNELS = ("netkv_score_cohort", "kv_pack", "kv_unpack", "flash_decode",
-           "waterfill_progressive", "waterfill_fast", "rwkv_scan")
+           "waterfill_progressive", "waterfill_fast", "rwkv_scan", "moe_decode")
 # The FULL grid of benchmarks/exp11_scenario_sweep.py (defined here: that
 # module imports the JAX package).
 EXP11 = dict(schedulers=("cla", "netkv-static", "netkv-full"), chunks=(None, 256, 1024),
@@ -216,6 +230,13 @@ FD_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (0.0, 2e-5)}
 # plain version); in bf16 one rounding step of the output, as FD_TOL.  The
 # final state is f32 either way and held to atol 1e-4.
 RWKV_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (0.0, 1e-4)}
+# moe_decode (rtol, atol over the largest |output|) by dtype, and the share of
+# bf16 elements it must give bit for bit.  Kernel and plain version take f32
+# products and round at the same places, in other orders of the f32 sums: a
+# rounded intermediate moves by one step in rare elements, and a token's two
+# gated terms may cancel, so one step of a term shows on a small output.
+MOE_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -7), torch.float32: (1e-5, 1e-5)}
+MOE_EQUAL_SHARE = 0.9
 
 
 def say(msg: str) -> None:
@@ -302,7 +323,7 @@ def phase_build() -> None:
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
-    for name in ("netkv_score", "flash_decode", "rwkv_scan"):
+    for name in ("netkv_score", "flash_decode", "rwkv_scan", "moe_decode"):
         say(f"[build] -Xptxas -v of {name}.cu:")
         for line in logs[name]["ptxas"].splitlines():
             say(f"[build]   {line.rstrip()}")
@@ -829,6 +850,106 @@ def check_rwkv_scan(rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# K8 at Jamba2-Mini's decode shape (d 4096, f 14,336, E 16, top 2, bf16), on
+# routings of T 4 lanes that touch 2 experts (every lane alike), 4 (the active
+# lane and three idle lanes alike, as serve() decodes), 8 (every lane
+# distinct), and of T 8 lanes that touch all 16.  Then ragged shapes
+# (T, d, f, E, k): T no power of two and widths no multiple of the column
+# tile, every expert of every token (8 rows a block), one lane.
+MOE_SHAPE = (4096, 14336, 16, 2)
+MOE_ROUTINGS = {2: [[0, 1]] * 4, 4: [[0, 1], [2, 3], [2, 3], [2, 3]],
+                8: [[2 * i, 2 * i + 1] for i in range(4)],
+                16: [[2 * i, 2 * i + 1] for i in range(8)]}
+MOE_RAGGED = ((3, 200, 328, 5, 2), (8, 96, 40, 3, 3), (1, 64, 16, 2, 1))
+
+
+def moe_error(got, want) -> tuple[float, float]:
+    """(largest error over the largest |want|, share of elements equal);
+    raises past MOE_TOL or, in bf16, below MOE_EQUAL_SHARE."""
+    rtol, atol = MOE_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    scale = w.abs().max().item()
+    err = (g - w).abs()
+    same = (got == want).float().mean().item()
+    ensure(bool(torch.isfinite(g).all()) and (err - rtol * w.abs()).max().item() <= atol * scale
+           and (want.dtype != torch.bfloat16 or same >= MOE_EQUAL_SHARE),
+           f"moe_decode {tuple(want.shape)} {want.dtype}: max err {err.max().item()} of "
+           f"{scale}, {same:.4f} equal")
+    return err.max().item() / scale, same
+
+
+def check_moe_decode(rows: dict) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_decode import moe_decode, plan
+    from repro_torch.models.moe import dispatch_bmm, route, slot_positions
+
+    bf16 = torch.bfloat16
+    d, f, e, k = MOE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = {n: (torch.randn(s, generator=gen, device="cuda") * s[-2] ** -0.5).to(bf16)
+         for n, s in (("w_gate", (e, d, f)), ("w_up", (e, d, f)), ("w_down", (e, f, d)))}
+    timed, worst, kept = {}, 0.0, None
+    for n_e, routing in MOE_ROUTINGS.items():
+        experts = torch.tensor(routing, device="cuda")
+        t = experts.shape[0]
+        x = torch.randn((t, d), generator=gen, device="cuda").to(bf16)
+        gates = torch.softmax(torch.randn((t, k), generator=gen, device="cuda"), dim=-1)
+        args = (x, experts, gates, p["w_gate"], p["w_up"], p["w_down"])
+        got = moe_decode(*args)
+        err, same = moe_error(got, ref.moe_decode_ref(*args))
+        ensure(torch.equal(got, moe_decode(*args)), f"moe_decode {n_e} experts: two calls differ")
+        pos, _ = slot_positions(experts, e)
+        lib_err = ((dispatch_bmm(x, experts, gates, pos, t, p).float() - got.float()).abs().max()
+                   / got.float().abs().max()).item()
+        k_ms = device_time_ms(lambda: moe_decode(*args), 50)
+        p_ms = device_time_ms(lambda: ref.moe_decode_ref(*args), 3)
+        l_ms = device_time_ms(lambda: dispatch_bmm(x, experts, gates, pos, t, p), 10)
+        # Bytes: the routed experts' weights, x and the output; operations:
+        # 3 d f multiply-adds a (token, slot).
+        b_ms, b_by = bound(n_e * 3 * d * f * 2 + 2 * t * d * 2, 2 * 3 * t * k * d * f, bf16)
+        worst = max(worst, err)
+        timed[n_e] = dict(tokens=t, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                          bound_by=b_by, roofline_pct=100 * b_ms / k_ms, max_err=err,
+                          equal_share=same, bmm_path_err=lib_err, plan=plan(t, d, f, bf16))
+        say(f"[kernels] moe_decode T {t}, {n_e} experts routed of {e} (d {d}, f {f}, bf16): "
+            f"{k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / k_ms:.1f}%); plain "
+            f"{p_ms:.3f} ms; bmm path over all {e} {l_ms:.4f} ms; err {err:.3g} of the largest "
+            f"output, {same:.4f} of elements equal (the bmm path: {lib_err:.3g}); "
+            f"{plan(t, d, f, bf16)}")
+        if n_e == 4:
+            kept = (args, got)
+    # The weights of the experts no token routes to, set to NaN, are never read.
+    args, want = kept
+    unrouted = sorted(set(range(e)) - set(args[1].unique().tolist()))
+    for w in args[3:]:
+        w[unrouted] = float("nan")
+    ensure(torch.equal(moe_decode(*args), want), "moe_decode read an unrouted expert")
+    say(f"[kernels] moe_decode: NaN in the {len(unrouted)} unrouted experts' weights leaves "
+        f"the output bitwise equal")
+    del p, args, kept
+    torch.cuda.empty_cache()
+    for t, dd, ff, ee, kk in MOE_RAGGED:
+        for dtype in (bf16, torch.float32):
+            w = {n: (torch.randn(s, generator=gen, device="cuda") * s[-2] ** -0.5).to(dtype)
+                 for n, s in (("router", (dd, ee)), ("w_gate", (ee, dd, ff)),
+                              ("w_up", (ee, dd, ff)), ("w_down", (ee, ff, dd)))}
+            x = torch.randn((t, dd), generator=gen, device="cuda").to(dtype)
+            _, gates, experts = route(x, w["router"], kk, False)
+            args = (x, experts, gates, w["w_gate"], w["w_up"], w["w_down"])
+            got = moe_decode(*args)
+            err, same = moe_error(got, ref.moe_decode_ref(*args))
+            ensure(torch.equal(got, moe_decode(*args)), "moe_decode: two calls differ")
+            say(f"[kernels] moe_decode T {t}, d {dd}, f {ff}, E {ee}, top {kk}, {dtype}: err "
+                f"{err:.3g}, {same:.4f} equal; {plan(t, dd, ff, dtype)}")
+    served = timed[4]
+    rows["moe_decode"] = row(
+        "moe_decode", worst, served["ms"], served["plain_ms"], served["library_ms"],
+        served["bound_ms"], served["bound_by"],
+        shape=f"x ({served['tokens']}, {d}) bf16, E {e} of ({d}, {f}), top {k}, 4 experts routed",
+        timed={str(n): v for n, v in timed.items()},
+        library="the bmm path over all 16 experts (models/moe.py dispatch_bmm, cuBLAS)")
+
+
 # ---------------------------------------------------------------- phase 4
 def phase_match(arch: str) -> None:
     """Serve a small workload twice from one set of weights: on the card
@@ -982,10 +1103,14 @@ def attn_launches(cfg, workload, results, reqs, steps) -> dict:
     decode instance skip their hit pages) and, for a hybrid, the whole fixed
     state of its Mamba layers; returns the launch counts the run must show
     (one pack and one unpack a K/V leaf of a request with pages to ship,
-    one flash_decode an attention layer a step)."""
+    one flash_decode an attention layer a step, and one moe_decode a MoE
+    layer a step where ``moe.decodes_routed`` holds for the engine's lanes:
+    no slot can be dropped and K8 holds that many rows)."""
     from repro_torch.core.cost import B_TOK
     from repro_torch.kernels import build
+    from repro_torch.kernels.moe_decode import held_rows
     from repro_torch.models import state_bytes
+    from repro_torch.models.moe import capacity
 
     page_bytes = B_TOK * cfg.n_kv_heads * cfg.d_head * 2
     prompt_pages = workload["prompt_len"] // B_TOK
@@ -1008,9 +1133,13 @@ def attn_launches(cfg, workload, results, reqs, steps) -> dict:
         shipping += hit < prompt_pages
     full_bytes = 2 * cfg.n_attn_layers * prompt_pages * page_bytes + fixed
     ensure(any(r.transfer_bytes < full_bytes for r in results), "no repeat prefix hit")
+    lanes = workload["n_slots"]
+    n_moe = cfg.n_periods * sum(f in ("moe", "moe_res") for f in cfg.ffn_pattern)
+    routed = n_moe > 0 and (capacity(lanes, cfg.moe) >= lanes
+                            and lanes <= held_rows(cfg.d_model, cfg.compute_dtype))
     return dict.fromkeys(build.LAUNCHES, 0) | {
         "flash_decode": cfg.n_attn_layers * steps, "kv_pack": kv_leaves * shipping,
-        "kv_unpack": kv_leaves * shipping}
+        "kv_unpack": kv_leaves * shipping, "moe_decode": n_moe * steps if routed else 0}
 
 
 # ---------------------------------------------------------- phases 6, 8
@@ -1601,6 +1730,64 @@ def time_mamba(model) -> None:
             f"operations {t_ops:.4f} ms); by class "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in tr["by_class_ms"].items()))
     say("[mamba] " + json.dumps(out))
+
+
+# Phase 8f: the published Jamba block (no token dropped) at JAMBA_LAYERS of
+# Jamba2-Mini's (and jamba-v0.1's) widths, served as phase 8c serves
+# jamba-v0.1: one request at a time in lane 0 of a 4-lane decode engine,
+# lanes 1-3 idle, every decode MoE layer on K8.
+def serve_moe() -> dict:
+    """Serve the published Jamba block through :func:`phase_serve` (whose
+    launch counts hold K8 to one launch a MoE layer a decode step) and
+    report the distinct experts each decode MoE layer routed to: an eager
+    step's routing as it is made, a graphed step's read from the captured
+    routing after each replay.  Returns the serve's launch counts."""
+    from collections import Counter
+
+    from repro_torch.configs.jamba_v01_52b import published
+    from repro_torch.launch.serve import FULL
+    from repro_torch.models import decode_graph, moe
+
+    cfg = published(full_config(JAMBA))
+    n_moe = cfg.n_periods * sum(f == "moe" for f in cfg.ffn_pattern)
+    seen, pending, captured = [], [], {}
+    real = moe.route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay
+
+    def route(xf, *a):
+        out = real[0](xf, *a)
+        if xf.shape[0] == FULL["n_slots"]:      # a decode step; a prefill has 2048 rows
+            (pending if torch.cuda.is_current_stream_capturing() else seen).append(out[2])
+        return out
+
+    def capture(self, top):
+        pending.clear()
+        graph, calls = real[1](self, top)
+        captured[id(graph)] = list(pending)
+        return graph, calls
+
+    def replay(self):
+        real[2](self)
+        seen.extend(e.clone() for e in captured.get(id(self), ()))
+
+    say(f"[serve] the published Jamba block (no drop, capacity factor "
+        f"{cfg.moe.capacity_factor:g}) at {cfg.n_layers} layers, {n_moe} of them MoE")
+    moe.route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay = (
+        route, capture, replay)
+    try:
+        launches, cluster, _ = phase_serve(cfg)
+    finally:
+        moe.route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay = real
+    steps = sum(w["decode_steps"] for w in cluster.walls)
+    ensure(len(seen) == n_moe * steps, f"{len(seen)} decode MoE layers routed, {steps} steps")
+    ensure(launches["moe_decode"] == n_moe * steps, ("K8 launches", launches["moe_decode"]))
+    distinct = [int(e.unique().numel()) for e in seen]
+    hist = dict(sorted(Counter(distinct).items()))
+    say(f"[moe] published jamba served, lane 0 active of {FULL['n_slots']}: distinct experts a "
+        f"decode MoE layer over {steps} steps x {n_moe} layers: {hist}, mean "
+        f"{sum(distinct) / len(distinct):.3f}; K8 {launches['moe_decode']} launches; graphs "
+        f"{[d.graph_stats for d in cluster.decode]}")
+    del cluster
+    return launches
 
 
 # ---------------------------------------------------------- phases 8d, 8e
@@ -2528,6 +2715,15 @@ def main(argv=None) -> int:
         phase_dryrun()
         lap("dry run")
         return 0
+    if (sys.argv[1:] if argv is None else argv) == ["--moe"]:
+        # This slice alone: K8's checks and times, phase 8f.  No kernels
+        # line and no ok line.
+        check_moe_decode({})
+        lap("kernels")
+        serve_moe()
+        free()
+        lap("serve published jamba")
+        return 0
     if (sys.argv[1:] if argv is None else argv) == ["--train"]:
         # This slice alone: K4's checks, the per-slot decode at qwen3-14b's
         # width, phase 12.  No kernels line and no ok line.
@@ -2548,6 +2744,7 @@ def main(argv=None) -> int:
     check_readonly_kernels(rows["flash_decode"])
     check_netkv_score(rows)
     check_rwkv_scan(rows)
+    check_moe_decode(rows)
     lap("kernels")
     for arch in ("qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m", "arctic-480b",
                  *DENSE_SERVES, JAMBA, INTERNVL2):
@@ -2591,6 +2788,11 @@ def main(argv=None) -> int:
         for k in ("kv_pack", "kv_unpack", "flash_decode"):
             launches[k] += more[k]
         lap(f"serve {arch}")
+    more = serve_moe()
+    free()
+    for k in ("kv_pack", "kv_unpack", "flash_decode", "moe_decode"):
+        launches[k] += more[k]
+    lap("serve published jamba")
     launches["flash_decode"] += phase_encdec()
     free()
     lap(f"model {SEAMLESS}")

@@ -12,6 +12,8 @@
                       (csrc/waterfill.cu)
   rwkv_scan           the WKV-6 recurrence of the RWKV-6 time mix, one block
                       per (batch, head) over the whole of T (csrc/rwkv_scan.cu)
+  moe_decode          a decode step's MoE FFN over the experts its tokens
+                      route to, reading no other expert (csrc/moe_decode.cu)
 
 ``ops`` routes CUDA tensors to the kernels and CPU tensors to ``ref``;
 ``build`` compiles the sources with nvcc at first use and counts launches.

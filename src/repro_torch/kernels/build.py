@@ -40,11 +40,12 @@ SOURCES = {
     "flash_decode": [],
     "waterfill": ["--fmad=false"],
     "rwkv_scan": [],
+    "moe_decode": [],
 }
 
 LAUNCHES = {"netkv_score_cohort": 0, "kv_pack": 0, "kv_unpack": 0,
             "flash_decode": 0, "waterfill_progressive": 0, "waterfill_fast": 0,
-            "rwkv_scan": 0}
+            "rwkv_scan": 0, "moe_decode": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -115,6 +115,19 @@ def waterfill_fast(caps: torch.Tensor, active: torch.Tensor,
     return ref.waterfill_rates_fast_ref(caps, active, nhops)
 
 
+def moe_decode(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
+               w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """K8: a decode step's MoE FFN (T, d) over the experts its T tokens
+    route to (``experts``, ``gates`` (T, k) from ``models.moe.route``), no
+    slot dropped."""
+    _no_grad("moe_decode", x, w_gate, w_up, w_down)
+    if _on_card(x):
+        from .moe_decode import moe_decode as kernel
+
+        return kernel(x, experts, gates, w_gate, w_up, w_down)
+    return ref.moe_decode_ref(x, experts, gates, w_gate, w_up, w_down)
+
+
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
               u: torch.Tensor):
     """K7: the WKV-6 recurrence, ``(y, final_state)``."""

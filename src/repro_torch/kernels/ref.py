@@ -302,3 +302,31 @@ def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys[:, i] = (rf[:, i, :, :, None] * (state + uf * kv)).sum(dim=-2)
         state = state * wf[:, i, :, :, None] + kv
     return ys.to(r.dtype), state
+
+
+def moe_decode_ref(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
+                   w_gate: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor) -> torch.Tensor:
+    """x (T, d); experts and gates (T, k); w_gate, w_up (E, d, f), w_down
+    (E, f, d) -> (T, d) in x's dtype: each (token, kk) slot through its
+    expert's SwiGLU over the gathered weights of the routed experts alone,
+    products in f32, each rounded to x's dtype where ``models/moe.py``'s
+    ``bmm`` path rounds (its gate and up outputs, silu, their product, the
+    down output, the gated term); a token's k terms added in k order, each
+    sum rounded."""
+    t, k = experts.shape
+    flat = experts.reshape(-1)
+
+    def rnd(v):
+        return v.to(x.dtype).float()
+
+    xs = x.float().repeat_interleave(k, dim=0)[:, None]             # (T k, 1, d)
+    g = rnd(torch.bmm(xs, w_gate[flat].float()))
+    u = rnd(torch.bmm(xs, w_up[flat].float()))
+    h = rnd(rnd(torch.nn.functional.silu(g)) * u)
+    y = rnd(torch.bmm(h, w_down[flat].float())[:, 0])               # (T k, d)
+    terms = rnd(y * rnd(gates.reshape(-1, 1).float())).view(t, k, -1)
+    out = terms[:, 0]
+    for j in range(1, k):
+        out = rnd(out + terms[:, j])
+    return out.to(x.dtype)

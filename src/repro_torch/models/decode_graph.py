@@ -41,8 +41,9 @@ kernels do not run, so no ``layer.*`` span or ``k4.launch`` stamp is
 recorded for them.  A replayed step records ``decode.graph`` (a = the
 bucket's top, b = 1 where the step captured the graph) round the staging
 copy and the replay, and a ``k4.launch`` stamp for each K4 call of the
-graph just before the replay call that launches them;
-``build.LAUNCHES["flash_decode"]`` grows by those calls at each replay.
+graph just before the replay call that launches them.
+``build.LAUNCHES["flash_decode"]`` and ``["moe_decode"]`` (K8) grow by the
+graph's calls at each replay, as they grow by an eager step's.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from .sharding import current_mesh, current_rules
 BUCKET_FLOOR = 256                        # the smallest bucket's top
 GRAPHED_BLOCKS = ("attn", "mamba")
 GRAPHED_FFNS = ("dense", "moe", "moe_res")
+COUNTED = ("flash_decode", "moe_decode")  # kernels whose launches a replay counts
 
 _POOL = None     # the memory pool every graph of the process takes its intermediates from
 _STREAM = None   # the side stream every capture runs on
@@ -131,7 +133,8 @@ class DecodeGraphs:
         self.model, self.cache, self.batch = model, cache, batch
         attn = [i for i, blk, _, _ in _positions(model.cfg) if blk == "attn"]
         self.cache_len = cache[f"k{attn[0]}"].shape[2] if attn else 0
-        self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, int]] = {}  # top -> (graph, K4 calls)
+        # top -> (graph, its calls of each COUNTED kernel)
+        self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, dict[str, int]]] = {}
         self._host = self._static = self._logits = self._copied = None
         self.replays = self.captures = self.eager = 0
         self.capture_s = 0.0
@@ -168,12 +171,13 @@ class DecodeGraphs:
         self._stage(token, pos)
         if held is None:
             held = self._graphs[top] = self._capture(top)
-        graph, k4_calls = held
+        graph, calls = held
         if tr is not None:
-            for _ in range(k4_calls):
+            for _ in range(calls["flash_decode"]):
                 tr.stamp(hosttrace.K4_LAUNCH)
         graph.replay()
-        build.LAUNCHES["flash_decode"] += k4_calls
+        for name, n in calls.items():
+            build.LAUNCHES[name] += n
         self.replays += 1
         if tr is not None:
             tr.end(i_graph)
@@ -196,18 +200,18 @@ class DecodeGraphs:
         self._static.copy_(self._host, non_blocking=True)
         self._copied.record()
 
-    def _capture(self, top: int) -> tuple[torch.cuda.CUDAGraph, int]:
+    def _capture(self, top: int) -> tuple[torch.cuda.CUDAGraph, dict[str, int]]:
         """Capture :func:`decode_body` at ``top`` on the side stream, into
         the shared pool, with the recorder off; returns the graph and its
-        K4 calls (taken back out of ``build.LAUNCHES``: captured kernels do
-        not run)."""
+        calls of each COUNTED kernel (taken back out of ``build.LAUNCHES``:
+        captured kernels do not run)."""
         dev = self.model.device
         _open_pool(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         reserved = torch.cuda.memory_reserved(dev)
         recorder, hosttrace.RECORDER = hosttrace.RECORDER, None
-        launched = build.LAUNCHES["flash_decode"]
+        launched = {name: build.LAUNCHES[name] for name in COUNTED}
         _STREAM.wait_stream(torch.cuda.current_stream(dev))
         try:
             with torch.cuda.stream(_STREAM):
@@ -219,10 +223,10 @@ class DecodeGraphs:
                     graph.capture_end()
         finally:
             hosttrace.RECORDER = recorder
-            k4_calls = build.LAUNCHES["flash_decode"] - launched
-            build.LAUNCHES["flash_decode"] = launched
+            calls = {name: build.LAUNCHES[name] - n for name, n in launched.items()}
+            build.LAUNCHES.update(launched)
         torch.cuda.current_stream(dev).wait_stream(_STREAM)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
-        return graph, k4_calls
+        return graph, calls

@@ -17,6 +17,13 @@ spill row of its own, so no two writes share a row; the combine sums a
 token's k terms one after another in the output dtype, the order (and, in
 bf16, the rounding after each add) of the reference's scatter-add on the
 CPU.
+
+A decode step where no slot can be dropped (one token a row, ``cap >= T``,
+T within the rows K8 holds) runs K8 (``kernels.ops.moe_decode``) in place of
+the dispatch, the ``bmm`` over all E experts and the gather: it reads only
+the routed experts' weights and rounds where the ``bmm`` path rounds.  Every
+prefill, and every step where a slot may be dropped, keeps the ``bmm`` path,
+so the drop order stays the reference's (:func:`decodes_routed`).
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
+from ..kernels.moe_decode import held_rows
 from .common import ConfigOptions, InitSpec, swiglu
-from .sharding import merge_dims
+from .sharding import current_mesh, merge_dims
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -78,10 +87,15 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple[torch.Tensor
     b, s, d = x.shape
     nc = cfg.dispatch_chunks
     if nc > 1 and s % nc == 0:
-        parts = [_moe_ffn_once(xi, params, cfg) for xi in x.split(s // nc, dim=1)]
+        parts = [_moe_ffn_once(xi, params, cfg, False) for xi in x.split(s // nc, dim=1)]
         return (torch.cat([o for o, _ in parts], dim=1),
                 torch.stack([a for _, a in parts]).mean())
-    return _moe_ffn_once(x, params, cfg)
+    return _moe_ffn_once(x, params, cfg, decodes_routed(x, params, cfg))
+
+
+def capacity(t: int, cfg: MoEConfig) -> int:
+    """Slots an expert keeps of a dispatch group of ``t`` tokens."""
+    return max(int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
 
 
 def route(xf: torch.Tensor, router: torch.Tensor, top_k: int, renormalize: bool = True):
@@ -110,30 +124,63 @@ def slot_positions(experts: torch.Tensor, n_experts: int):
     return before.gather(0, flat[None, :])[0], onehot.sum(dim=1)
 
 
-def _moe_ffn_once(x: torch.Tensor, params: dict,
-                  cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def decodes_routed(x: torch.Tensor, params: dict, cfg: MoEConfig) -> bool:
+    """Whether :func:`moe_ffn` takes K8 for its input x (B, S, d): a
+    decode-shaped input (S = 1; a prefill's dispatch chunk is no decode) of
+    T = B tokens within the rows K8 holds at width d, no slot that can be
+    dropped (capacity >= T: a token's k experts are distinct, so no expert
+    gets more than T slots), plain tensors on the card or the CPU outside
+    mesh rules, and no gradient wanted (K8 has no backward)."""
+    b, s, d = x.shape
+    leaves = (x, params["w_gate"], params["w_up"], params["w_down"])
+    return (s == 1 and b <= held_rows(d, x.dtype) and capacity(b, cfg) >= b
+            and current_mesh() is None
+            and all(t.device.type in ("cpu", "cuda") for t in leaves)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)))
+
+
+def _moe_ffn_once(x: torch.Tensor, params: dict, cfg: MoEConfig,
+                  routed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One dispatch group: K8 where ``routed`` (:func:`decodes_routed`),
+    else the capacity dispatch and the bmm over every expert."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    cap = max(int(t * k / e * cfg.capacity_factor), 1)
+    cap = capacity(t, cfg)
     xf = x.reshape(t, d)
     probs, gates, experts = route(xf, params["router"], k, cfg.renormalize)
 
-    flat_e = experts.reshape(-1)
     pos, counts = slot_positions(experts, e)
-    keep = pos < cap
-
     # Load-balancing aux loss.
     frac_tokens = counts.float() / (t * k)
     aux = (frac_tokens * probs.mean(dim=0)).sum() * e
 
+    if routed:
+        out = ops.moe_decode(xf, experts, gates, params["w_gate"], params["w_up"],
+                             params["w_down"])
+    else:
+        out = dispatch_bmm(xf, experts, gates, pos, cap, params)
+    return out.reshape(b, s, d), aux
+
+
+def dispatch_bmm(xf: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
+                 pos: torch.Tensor, cap: int, params: dict) -> torch.Tensor:
+    """The capacity dispatch: xf (T, d) routed to ``experts`` (T, k) with
+    ``gates``, each slot at its position ``pos`` in its expert's buffer of
+    ``cap`` rows (a slot at or past ``cap`` dropped), the ``bmm`` over all E
+    experts' buffers, and the gated combine -> (T, d)."""
+    t, d = xf.shape
+    k = experts.shape[1]
+    e = params["w_gate"].shape[0]
+    flat_e = experts.reshape(-1)
+    keep = pos < cap
     gate_kept = torch.where(keep, gates.reshape(-1), 0.0)
     # Kept slot j goes to row flat_e*cap + pos of the (E*cap) expert rows,
     # a dropped one to spill row E*cap + j: every row is written once.
     n = t * k
-    flat_idx = torch.arange(n, device=x.device)
+    flat_idx = torch.arange(n, device=xf.device)
     kept_row = flat_e * cap + pos
-    buf = x.new_zeros((e * cap + n, d))
+    buf = xf.new_zeros((e * cap + n, d))
     buf[torch.where(keep, kept_row, e * cap + flat_idx)] = xf[flat_idx // k]
     h = buf[:e * cap].view(e, cap, d)
 
@@ -145,11 +192,11 @@ def _moe_ffn_once(x: torch.Tensor, params: dict,
     # gates, a token's k terms summed in order in x's dtype.
     y = torch.cat([y, y.new_zeros((1, d))])
     picked = y[torch.where(keep, kept_row, e * cap)]
-    terms = (picked * gate_kept[:, None].to(x.dtype)).view(t, k, d)
-    out = x.new_zeros((t, d))
+    terms = (picked * gate_kept[:, None].to(xf.dtype)).view(t, k, d)
+    out = xf.new_zeros((t, d))
     for j in range(k):
         out = out + terms[:, j]
-    return out.reshape(b, s, d), aux
+    return out
 
 
 def moe_with_residual(x: torch.Tensor, params: dict,
