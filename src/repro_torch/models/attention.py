@@ -168,21 +168,18 @@ def kernel_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
 EMPTY_M = -1e30   # the m of a row with no key in a shard; the merge weighs it 0
 
 
-def decode_partial(q: torch.Tensor, k_loc: torch.Tensor, v_loc: torch.Tensor, pos,
-                   start: int, k_new: torch.Tensor | None = None,
-                   v_new: torch.Tensor | None = None, kernel=ops.flash_decode_partials):
+def decode_partial(q: torch.Tensor, k_loc: torch.Tensor, v_loc: torch.Tensor,
+                   lengths: torch.Tensor, longest: int, start: int,
+                   k_new: torch.Tensor | None = None, v_new: torch.Tensor | None = None,
+                   kernel=ops.flash_decode_partials):
     """The local partial of the shard holding cache rows ``[start, start +
-    S_loc)``: (acc (B, H, dh), m (B, H), l (B, H)) in f32.  ``pos``: the
-    global valid length, an int, or a (B,) int tensor of each row's;
-    ``k_new``/``v_new`` (B, KV, dh), the self term, only where ``start`` is
-    0.  ``kernel``: K4 in partials mode, or its plain version."""
-    s_loc = k_loc.shape[1]
+    S_loc)``: (acc (B, H, dh), m (B, H), l (B, H)) in f32.  ``lengths``:
+    each row's global valid length, a (B,) int32 tensor on q's device;
+    ``longest``, a host int at least their maximum, bounds the shard's
+    range.  ``k_new``/``v_new`` (B, KV, dh), the self term, only where
+    ``start`` is 0.  ``kernel``: K4 in partials mode, or its plain version."""
     qp, h = _padded(q, k_loc.shape[2])
-    if isinstance(pos, torch.Tensor):
-        lengths = pos.to(q.device, torch.int32)
-        local = min(max(int(pos.max()) - start, 0), s_loc)
-    else:
-        lengths, local = None, min(max(int(pos) - start, 0), s_loc)
+    local = min(max(longest - start, 0), k_loc.shape[1])
     acc, m, l = kernel(qp, k_loc, v_loc, local, lengths, start=start, k_new=k_new, v_new=v_new)
     return acc[:, :h], m[:, :h], l[:, :h]
 
@@ -205,45 +202,50 @@ def _shard_bounds(s: int, n_shards: int) -> list[tuple[int, int]]:
 
 
 def seq_sharded_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                                 v_cache: torch.Tensor, pos,
+                                 v_cache: torch.Tensor, lengths: torch.Tensor, longest: int,
                                  k_new: torch.Tensor | None = None,
                                  v_new: torch.Tensor | None = None, *, mesh=None,
                                  batch_axes=(), seq_axes=(), n_shards: int | None = None
                                  ) -> torch.Tensor:
     """Read-only decode attention with the KV cache cut along S: q (B, 1, H,
-    dh), k/v (B, S, KV, dh), k_new/v_new (B, 1, KV, dh) -> (B, 1, H, dh).
+    dh), k/v (B, S, KV, dh), k_new/v_new (B, 1, KV, dh) -> (B, 1, H, dh);
+    row b attends to its first ``lengths[b]`` cache rows (a (B,) int32
+    tensor, each at most the host int ``longest``).
 
     Without a mesh the cache is cut into ``n_shards`` equal shards here and
     their partials are merged in shard order.  Under a ``DeviceMesh`` the
     cache is a DTensor sharded on dim 1 over ``seq_axes`` (and on dim 0 over
-    ``batch_axes``); each shard's partial is taken on its local rows with
-    ``local_map``, then m is all-reduced with MAX and the rescaled acc and l
-    with SUM over each sequence axis: O(B H dh) a layer, never the cache."""
-    b, _, h, dh = q.shape
+    ``batch_axes``, as are q and the lengths); each shard's partial is taken
+    on its local rows with ``local_map``, then m is all-reduced with MAX and
+    the rescaled acc and l with SUM over each sequence axis: O(B H dh) a
+    layer, never the cache."""
     q1 = q[:, 0]
     kn = None if k_new is None else k_new[:, 0]
     vn = None if v_new is None else v_new[:, 0]
     if mesh is None:
-        parts = [decode_partial(q1, k_cache[:, lo:hi], v_cache[:, lo:hi], pos, lo,
+        parts = [decode_partial(q1, k_cache[:, lo:hi], v_cache[:, lo:hi], lengths, longest, lo,
                                 *((kn, vn) if lo == 0 else (None, None)))
                  for lo, hi in _shard_bounds(k_cache.shape[1], n_shards or 1)]
         return merge_partials(parts, q.dtype)[:, None]
-    return _mesh_sharded(q1, k_cache, v_cache, pos, kn, vn, mesh, tuple(batch_axes),
-                         tuple(seq_axes))[:, None]
+    return _mesh_sharded(q1, k_cache, v_cache, lengths, longest, kn, vn, mesh,
+                         tuple(batch_axes), tuple(seq_axes))[:, None]
 
 
-def sharded_decode_attention(q, k_cache, v_cache, pos, *, mesh=None, seq_axis: str = "",
+def sharded_decode_attention(q, k_cache, v_cache, pos: int, *, mesh=None, seq_axis: str = "",
                              n_shards: int | None = None) -> torch.Tensor:
-    """JAX's sequence-parallel decode without a self term: the cache
-    sharded along S over ``seq_axis`` (or cut into ``n_shards``)."""
-    return seq_sharded_decode_attention(q, k_cache, v_cache, pos, mesh=mesh,
+    """JAX's sequence-parallel decode without a self term: every row over
+    the first ``pos`` rows of the cache sharded along S over ``seq_axis``
+    (or cut into ``n_shards``)."""
+    lengths = torch.full((q.shape[0],), int(pos), dtype=torch.int32, device=q.device)
+    return seq_sharded_decode_attention(q, k_cache, v_cache, lengths, int(pos), mesh=mesh,
                                         seq_axes=(seq_axis,) if mesh is not None else (),
                                         n_shards=n_shards)
 
 
-def _mesh_sharded(q, k_cache, v_cache, pos, k_new, v_new, mesh, batch_axes, seq_axes):
+def _mesh_sharded(q, k_cache, v_cache, lengths, longest, k_new, v_new, mesh, batch_axes,
+                  seq_axes):
     from torch.distributed._functional_collectives import all_reduce
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     names = mesh.mesh_dim_names
@@ -255,7 +257,7 @@ def _mesh_sharded(q, k_cache, v_cache, pos, k_new, v_new, mesh, batch_axes, seq_
     rows = placements({0: batch_axes})
     cache = placements({0: batch_axes, 1: seq_axes})
 
-    def local(ql, kl, vl, kn, vn):
+    def local(ql, kl, vl, ll, kn, vn):
         idx = 0
         for a in seq_axes:
             idx = idx * mesh.size(names.index(a)) + mesh.get_local_rank(a)
@@ -264,7 +266,7 @@ def _mesh_sharded(q, k_cache, v_cache, pos, k_new, v_new, mesh, batch_axes, seq_
         # The dry run's local shards are meta tensors (shapes, no values),
         # which no kernel takes: the plain version gives the partial's shapes.
         kernel = ref.flash_decode_partials_ref if kl.is_meta else ops.flash_decode_partials
-        acc, m, l = decode_partial(ql, kl, vl, pos, start,
+        acc, m, l = decode_partial(ql, kl, vl, ll, longest, start,
                                    *((kn, vn) if first else (None, None)), kernel=kernel)
         gm = m
         for a in seq_axes:
@@ -276,10 +278,12 @@ def _mesh_sharded(q, k_cache, v_cache, pos, k_new, v_new, mesh, batch_axes, seq_
             l = all_reduce(l, "sum", (mesh, names.index(a)))
         return (acc / torch.clamp(l, min=1e-30)[..., None]).to(ql.dtype)
 
+    # The host's lengths enter replicated; local_map cuts each rank's rows.
+    lengths = DTensor.from_local(lengths, mesh, [Replicate()] * mesh.ndim, run_check=False)
     # local_map reads a tuple as one placement list an output: lists here.
     rows, cache = list(rows), list(cache)
     fn = local_map(local, out_placements=rows,
-                   in_placements=(rows, cache, cache, rows if k_new is not None else None,
+                   in_placements=(rows, cache, cache, rows, rows if k_new is not None else None,
                                   rows if v_new is not None else None),
                    device_mesh=mesh, redistribute_inputs=True)
-    return fn(q, k_cache, v_cache, k_new, v_new)
+    return fn(q, k_cache, v_cache, lengths, k_new, v_new)

@@ -19,7 +19,11 @@ the period axis P (``layers.b{i}.wq`` is (P, d, H*dh) for period position
 ``serving.transfer.paged_view`` pages; Mamba ``ssm{i}`` (P, B, d_inner, 16)
 f32 and ``conv{i}`` (P, B, 3, d_inner); RWKV ``wkv{i}`` (P, B, H, 64, 64)
 f32 and the shift states ``sa{i}``/``sc{i}`` (P, B, d).  ``pos`` is a
-host int, or a (B,) vector of per-slot positions, as JAX's decode takes.
+host int, or a (B,) vector of per-slot positions, as JAX's decode takes;
+:func:`decode_step` turns it into the one form the decode layers take, each
+row's position on the device and the longest as a host int, and runs the
+writing step (:func:`decode_body`) or the read-only one
+(:func:`readonly_body`) on it.
 
 Weights are stored once in ``compute_dtype``.  JAX keeps f32 parameters and
 casts every f32 tensor of more than one dimension to ``compute_dtype`` on
@@ -684,27 +688,49 @@ def decode_body(model: Model, token: torch.Tensor, positions: torch.Tensor, cach
     rope = _rope(cfg, positions[:, None])
     x = constrain(F.embedding(token, model.embed), "batch", None, None)
     for per in range(cfg.n_periods):
-        x = _period_decode(model, per, x, cache, positions, rope, (lengths, longest, flat))
+        x = _period_decode(model, per, x, cache, rope, lengths, longest, flat)
     return _logits(model, x)
+
+
+def readonly_body(model: Model, token: torch.Tensor, positions: torch.Tensor, cache: dict,
+                  longest: int) -> tuple[torch.Tensor, dict]:
+    """The read-only decode step over :func:`decode_body`'s inputs, with
+    ``longest`` a host int at least ``max(positions)`` -> (logits (B, 1, V),
+    the step's new K/V fragments and states by leaf name, each stacked over
+    the periods).  Row b attends to its first ``positions[b]`` cache rows
+    and to its own token; no tensor of ``cache`` is written."""
+    cfg = model.cfg
+    lengths = positions.to(torch.int32)
+    rope = _rope(cfg, positions[:, None])
+    # F.embedding is the same gather as indexing; a vocab-sharded table then
+    # stays sharded under a mesh (a masked lookup and a sum of (B, 1, d))
+    x = constrain(F.embedding(token, model.embed), "batch", None, None)
+    new = {}
+    for per in range(cfg.n_periods):
+        x = _period_decode(model, per, x, cache, rope, lengths, longest, new)
+    return _logits(model, x), {k: torch.stack(v) for k, v in new.items()}
 
 
 @torch.no_grad()
 def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache: bool = True,
                 graphs=None):
     """token (B, 1) -> (logits (B, 1, V), cache); ``cache["pos"]`` advances
-    by one.
+    by one and keeps its form.
 
     ``cache["pos"]`` is an int, every row at that position, or, as in
     JAX, a (B,) vector of per-slot positions (a tensor or an array; best
-    on the host, so that nothing is read back from the card).  ``token``
-    may lie on the host; it is copied to the model's device.
+    on the host, so that nothing is read back from the card).  Here, and
+    only here, it becomes the one form every layer below takes: each row's
+    position, a (B,) int64 vector on the model's device (the host values,
+    an int as B equal ones, in one copy), and ``longest``, their
+    maximum as a host int.  ``token`` may lie on the host; it is copied to
+    the model's device.
 
     The cache is updated in place (JAX returns an updated copy; writing in
-    place saves a cache copy per layer).  Attention: each row's new K/V
-    lands at its position and attention runs through
+    place saves a cache copy per layer): :func:`decode_body`.  Attention:
+    each row's new K/V lands at its position and attention runs through
     ``attention.kernel_decode_attention`` (K4) over each row's first pos+1
-    entries (per-row lengths; a vector on the host is one copy to the card
-    a step; :func:`decode_body`); RoPE turns each row by its position.  An
+    entries (per-row lengths); RoPE turns each row by its position.  An
     encoder-decoder's cross block then attends, through K4 too, to the
     whole ``ck{i}``/``cv{i}`` (pos = S_enc for every row).  Mamba and RWKV:
     each layer's states are overwritten by the step's (plain PyTorch, as in
@@ -717,16 +743,16 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache:
     The logits are then the runner's buffer, rewritten by its next step.
     Elsewhere the step runs eagerly, as without it.
 
-    ``update_cache=False`` is JAX's read-only (paged) decode: no tensor of
-    ``cache`` is written.  Each attention layer attends to its first ``pos``
-    cache rows (row b to its first ``pos[b]``) and to the current token as a
-    self term in the same softmax (K4 with ``k_new``/``v_new``; under a
-    mesh whose rules shard ``kv_seq``, the sequence-sharded partials and
-    merge).  Returns a new dict with JAX's keys: ``kf{i}``/``vf{i}`` (P, B,
-    1, KV, dh), the token's K/V after RoPE, for the caller to land; the new
-    ``ssm``/``conv``/``wkv``/``sa``/``sc`` states as new tensors; ``ck``/
-    ``cv`` and ``cross_memory`` passed through; ``pos + 1``."""
-    cfg = model.cfg
+    ``update_cache=False`` is JAX's read-only (paged) decode,
+    :func:`readonly_body`: no tensor of ``cache`` is written.  Row b of
+    each attention layer attends to its first ``pos[b]`` cache rows and to
+    the current token as a self term in the same softmax (K4 with those
+    lengths and ``k_new``/``v_new``; under a mesh whose rules shard
+    ``kv_seq``, the sequence-sharded partials and merge).  Returns a new
+    dict with JAX's keys: ``kf{i}``/``vf{i}`` (P, B, 1, KV, dh), the
+    token's K/V after RoPE, for the caller to land; the new ``ssm``/
+    ``conv``/``wkv``/``sa``/``sc`` states as new tensors; ``ck``/``cv`` and
+    ``cross_memory`` passed through; ``pos + 1``."""
     pos = cache["pos"]
     logits = None if graphs is None else graphs.run(token, cache, update_cache)
     if logits is not None:
@@ -734,31 +760,18 @@ def decode_step(model: Model, token: torch.Tensor, cache: dict, *, update_cache:
         return logits, cache
     if token.device != model.device:
         token = token.to(model.device)
-    vector = getattr(pos, "ndim", 0) == 1
-    if vector:
-        host = torch.as_tensor(pos).to("cpu", torch.int64)
-        dev, longest = host.to(model.device), int(host.max())
-    else:
-        pos = longest = int(pos)
-        dev = torch.full((token.shape[0],), pos, dtype=torch.int64, device=model.device)
+    host = torch.as_tensor(pos).to("cpu", torch.int64).expand(token.shape[0]).contiguous()
+    positions, longest = host.to(model.device), int(host.max())
     if update_cache:
-        logits = decode_body(model, token, dev, cache, longest + 1)
+        logits = decode_body(model, token, positions, cache, longest + 1)
         cache["pos"] = pos + 1
         return logits, cache
-    slots = [dev.to(torch.int32), longest, None] if vector else None  # row b's first pos[b]
-    rope = _rope(cfg, dev[:, None] if vector else dev[:1, None])
-    # F.embedding is the same gather as indexing; a vocab-sharded table then
-    # stays sharded under a mesh (a masked lookup and a sum of (B, 1, d))
-    x = constrain(F.embedding(token, model.embed), "batch", None, None)
-    new = {}
-    for per in range(cfg.n_periods):
-        x = _period_decode(model, per, x, cache, pos, rope, slots, new)
-    out = {k: torch.stack(v) for k, v in new.items()}
+    logits, out = readonly_body(model, token, positions, cache, longest)
     out.update({k: v for k, v in cache.items() if k.startswith(("ck", "cv"))})
     if "cross_memory" in cache:
         out["cross_memory"] = cache["cross_memory"]
     out["pos"] = pos + 1
-    return _logits(model, x), out
+    return logits, out
 
 
 def _seq_sharding(cfg: ModelConfig) -> dict | None:
@@ -772,39 +785,38 @@ def _seq_sharding(cfg: ModelConfig) -> dict | None:
     return {"mesh": mesh, "batch_axes": tuple(rules.get("batch", ())), "seq_axes": seq_axes}
 
 
-def _readonly_attention(cfg: ModelConfig, q, k, v, k_cache, v_cache, pos, slots):
-    """The read-only decode's attention of q (B, 1, H, dh) with the self
-    term k/v (B, 1, KV, dh): sequence-sharded under :func:`_seq_sharding`,
-    else K4."""
+def _readonly_attention(cfg: ModelConfig, q, k, v, k_cache, v_cache, lengths, longest):
+    """The read-only decode's attention of q (B, 1, H, dh) over each row's
+    first ``lengths[b]`` cache rows, with the self term k/v (B, 1, KV, dh):
+    sequence-sharded under :func:`_seq_sharding`, else K4."""
     sharding = _seq_sharding(cfg)
     if sharding is not None:
-        return seq_sharded_decode_attention(q, k_cache, v_cache, pos if slots is None else
-                                            slots[0], k, v, **sharding)[:, 0]
-    kn, vn = k[:, 0].contiguous(), v[:, 0].contiguous()
-    if slots is None:
-        return kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
-                                       k_new=kn, v_new=vn)
-    return kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, slots[1], slots[0],
-                                   k_new=kn, v_new=vn)
+        return seq_sharded_decode_attention(q, k_cache, v_cache, lengths, longest, k, v,
+                                            **sharding)[:, 0]
+    return kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, longest, lengths,
+                                   k_new=k[:, 0].contiguous(), v_new=v[:, 0].contiguous())
 
 
-def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, rope,
-                   slots=None, new: dict | None = None) -> torch.Tensor:
-    """Period ``per`` of a decode step.  Writing, ``slots`` is
-    :func:`decode_body`'s (lengths, longest, flat index).  ``new`` (a dict
-    of lists) makes it read-only: the period's new K/V fragments and states
-    are appended there, by leaf name, and no cache tensor is written;
-    ``slots`` is then None (every row at ``pos``) or (lengths, longest,
-    None)."""
+def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, rope,
+                   lengths: torch.Tensor, longest: int, into) -> torch.Tensor:
+    """Period ``per`` of a decode step: attention reads row b's first
+    ``lengths[b]`` cache rows, K4 planned over ``longest``.  ``into`` is
+    where the step's new K/V and states go.  A (B,) tensor, each row's flat
+    index into a (B * cache_len, ...) view of the K/V leaves, writes the
+    cache in place, the K/V before attention reads it (:func:`decode_body`).
+    A dict of lists makes the step read-only (:func:`readonly_body`): the
+    token's K/V joins attention as a self term, and the fragments and
+    states are appended there by leaf name."""
     cfg = model.cfg
     eps = cfg.norm_eps
     b = x.shape[0]
+    readonly = isinstance(into, dict)
 
     def keep(name, t, inplace):
-        if new is None:
-            inplace.copy_(t)
+        if readonly:
+            into.setdefault(name, []).append(t)
         else:
-            new.setdefault(name, []).append(t)
+            inplace.copy_(t)
 
     tr = hosttrace.RECORDER
     for i, blk, ffn, has_ffn in _positions(cfg):
@@ -814,14 +826,13 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
         if blk == "attn":
             q, k, v = _qkv(cfg, p, x, rope)
             k_cache, v_cache = cache[f"k{i}"][per], cache[f"v{i}"][per]
-            if new is not None:
-                att = _readonly_attention(cfg, q, k, v, k_cache, v_cache, pos, slots)
+            if readonly:
+                att = _readonly_attention(cfg, q, k, v, k_cache, v_cache, lengths, longest)
                 keep(f"kf{i}", k, None)
                 keep(f"vf{i}", v, None)
             else:
-                lengths, longest, flat = slots
                 for c, kv_new in ((k_cache, k), (v_cache, v)):
-                    c.view(-1, *c.shape[2:]).index_copy_(0, flat, kv_new[:, 0].to(c.dtype))
+                    c.view(-1, *c.shape[2:]).index_copy_(0, into, kv_new[:, 0].to(c.dtype))
                 att = kernel_decode_attention(q[:, 0].contiguous(), k_cache, v_cache, longest,
                                               lengths)
             x = x + att.reshape(b, 1, -1) @ p["wo"]
@@ -832,8 +843,9 @@ def _period_decode(model: Model, per: int, x: torch.Tensor, cache: dict, pos, ro
                 if sharding is None:
                     att = kernel_decode_attention(cq[:, 0].contiguous(), ck, cv, ck.shape[1])
                 else:   # the cross cache is cut along S_enc as the self cache is
-                    att = seq_sharded_decode_attention(cq, ck, cv, ck.shape[1],
-                                                       **sharding)[:, 0]
+                    att = seq_sharded_decode_attention(cq, ck, cv,
+                                                       torch.full_like(lengths, ck.shape[1]),
+                                                       ck.shape[1], **sharding)[:, 0]
                 x = x + att.reshape(b, 1, -1) @ cp["wo"]
             if tr is not None:
                 tr.end(i_attn)

@@ -106,20 +106,26 @@ def test_vector_pos_decode_matches_jax(arch, change):
     _held_caches({k: v for k, v in tc.items() if k != "cross_memory"}, jc)
 
 
-@pytest.mark.parametrize("arch,change", CASES, ids=IDS)
-def test_equal_vector_pos_is_the_scalar_step_bitwise(arch, change):
+@pytest.mark.parametrize(
+    "arch,change,update_cache",
+    [(*case, True) for case in CASES] + [(*case, False) for case in CASES],
+    ids=IDS + [f"{i}-readonly" for i in IDS])
+def test_equal_vector_pos_is_the_scalar_step_bitwise(arch, change, update_cache):
     """A vector of equal positions gives the scalar step's logits and cache
     bit for bit (the RoPE angles, the cache writes and K4's split are the
-    same), and the scalar step still matches JAX's."""
+    same), and the scalar step still matches JAX's.  The read-only step
+    likewise: its logits and every returned fragment and state."""
     jcfg, tcfg, jp, model = _pair(arch, change)
     jc, tc, rng = _prefilled(jcfg, jp, model, 2, seed=2)
     tc_vec = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in tc.items()}
     tc_vec["pos"] = torch.full((2,), tc["pos"], dtype=torch.int32)
     tok = rng.integers(0, jcfg.vocab_size, (2, 1))
-    jl, jc = jax_decode_step(jcfg, jp, jnp.asarray(tok, jnp.int32), jc)
-    tl, tc = decode_step(model, torch.from_numpy(tok), tc)
-    vl, tc_vec = decode_step(model, torch.from_numpy(tok), tc_vec)
+    jl, jc = jax_decode_step(jcfg, jp, jnp.asarray(tok, jnp.int32), jc,
+                             update_cache=update_cache)
+    tl, tc = decode_step(model, torch.from_numpy(tok), tc, update_cache=update_cache)
+    vl, tc_vec = decode_step(model, torch.from_numpy(tok), tc_vec, update_cache=update_cache)
     assert torch.equal(tl, vl)
+    assert set(tc) == set(tc_vec)
     for key in tc:
         if key != "pos":
             assert torch.equal(tc[key], tc_vec[key]), key

@@ -300,7 +300,8 @@ def test_readonly_decode_on_card_matches_cpu(cuda):
     """``decode_step(update_cache=False)`` of the qwen3-14b and jamba smoke
     configs in f32 on the card (K4 with the self term) against the CPU: the
     logits and fragments within FD_TOL's f32 atol, the card's input cache
-    unchanged."""
+    unchanged; on the card an int ``pos`` and the equal vector give the same
+    step bit for bit."""
     import dataclasses
 
     from repro_torch.configs import get_spec
@@ -322,6 +323,13 @@ def test_readonly_decode_on_card_matches_cpu(cuda):
             assert all(torch.equal(cache[k], v) for k, v in before.items())
             outs.append((logits.cpu(), {k: v.cpu() for k, v in out.items()
                                         if isinstance(v, torch.Tensor)}))
+            if dev == cuda:
+                cache["pos"] = 24
+                li, oi = decode_step(model, tok.to(dev), cache, update_cache=False)
+                cache["pos"] = torch.full((3,), 24)
+                lv, ov = decode_step(model, tok.to(dev), cache, update_cache=False)
+                assert torch.equal(li, lv) and oi.keys() == ov.keys()
+                assert all(torch.equal(oi[k], ov[k]) for k in oi if k != "pos")
         torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=1e-4)
         for key, leaf in outs[0][1].items():
             torch.testing.assert_close(outs[1][1][key], leaf, rtol=0, atol=1e-4)

@@ -32,6 +32,12 @@ def _close(got, want, rtol):
     assert err <= rtol * float(np.abs(want).max()), err
 
 
+def _lengths(pos, b):
+    """The rows' lengths, an int32 (B,) tensor, from an int (every row) or
+    an array of each row's."""
+    return torch.from_numpy(np.broadcast_to(np.asarray(pos, np.int32), (b,)).copy())
+
+
 def _attn_inputs(rng, b, h, kv, dh, s, dtype=np.float32):
     q = rng.standard_normal((b, h, dh)).astype(dtype)
     k, v = (rng.standard_normal((b, s, kv, dh)).astype(dtype) for _ in range(2))
@@ -81,19 +87,19 @@ def test_seq_sharded_merge_matches_jax_shard_map(tmp_path):
     want = np.load(tmp_path / "out.npz")
     tq, tk, tv, tkn, tvn = (torch.from_numpy(x) for x in (q, k, v, kn, vn))
     for i, (n, pos) in enumerate(SHARD_CASES):
-        tpos = torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos
-        got = tattn.seq_sharded_decode_attention(tq[:, None], tk, tv, tpos, tkn[:, None],
-                                                 tvn[:, None], n_shards=n)[:, 0]
+        lengths, last = _lengths(pos, 3), int(np.max(pos))
+        got = tattn.seq_sharded_decode_attention(tq[:, None], tk, tv, lengths, last,
+                                                 tkn[:, None], tvn[:, None], n_shards=n)[:, 0]
         _close(got, want[str(i)], F32_RTOL)
-        parts = [tattn.decode_partial(tq, tk[:, lo:lo + 64 // n], tv[:, lo:lo + 64 // n], tpos,
-                                      lo, *((tkn, tvn) if lo == 0 else (None, None)))
+        parts = [tattn.decode_partial(tq, tk[:, lo:lo + 64 // n], tv[:, lo:lo + 64 // n],
+                                      lengths, last, lo,
+                                      *((tkn, tvn) if lo == 0 else (None, None)))
                  for lo in range(0, 64, 64 // n)]
-        last = int(np.max(pos))
         for j, (acc, m, l) in enumerate(parts):
             if j * (64 // n) >= last:   # a shard past every row's end: empty
                 assert bool((m == tattn.EMPTY_M).all()) and not l.any() and not acc.any()
-    one = tattn.seq_sharded_decode_attention(tq[:, None], tk, tv, 45, tkn[:, None],
-                                             tvn[:, None], n_shards=1)[:, 0]
+    one = tattn.seq_sharded_decode_attention(tq[:, None], tk, tv, _lengths(45, 3), 45,
+                                             tkn[:, None], tvn[:, None], n_shards=1)[:, 0]
     _close(one, ref.flash_decode_ref(tq, tk, tv, 45, tkn, tvn), F32_RTOL)
 
 
@@ -111,8 +117,9 @@ def _gloo_worker(rank, port, inputs, out_dir):
         dk, dv = (distribute_tensor(t, mesh, cache) for t in (k, v))
         dq, dkn, dvn = (distribute_tensor(t[:, None], mesh, [Shard(0), Replicate()])
                         for t in (q, kn, vn))
-        out = tattn.seq_sharded_decode_attention(dq, dk, dv, 45, dkn, dvn, mesh=mesh,
-                                                 batch_axes=("data",), seq_axes=("model",))
+        out = tattn.seq_sharded_decode_attention(dq, dk, dv, _lengths(45, 2), 45, dkn, dvn,
+                                                 mesh=mesh, batch_axes=("data",),
+                                                 seq_axes=("model",))
         np.save(os.path.join(out_dir, f"{rank}.npy"), out.full_tensor()[:, 0].numpy())
     finally:
         dist.destroy_process_group()
@@ -133,7 +140,7 @@ def test_mesh_merge_in_four_gloo_processes(tmp_path):
         port = sock.getsockname()[1]
     mp.spawn(_gloo_worker, args=(port, inputs, str(tmp_path)), nprocs=4, join=True)
     q, k, v, kn, vn = (torch.from_numpy(x) for x in inputs)
-    want = tattn.seq_sharded_decode_attention(q[:, None], k, v, 45, kn[:, None], vn[:, None],
-                                              n_shards=4)[:, 0]
+    want = tattn.seq_sharded_decode_attention(q[:, None], k, v, _lengths(45, 2), 45,
+                                              kn[:, None], vn[:, None], n_shards=4)[:, 0]
     for rank in range(4):
         _close(np.load(tmp_path / f"{rank}.npy"), want, F32_RTOL)
