@@ -9,14 +9,16 @@
                                     # decode at qwen3-14b's width and phase 12
     python3 chip_smoke.py --dryrun  # phases 1-2, K4's checks (its self term and
                                     # partials too), phase 5b and phase 12c
-    python3 chip_smoke.py --moe     # phases 1-2, K8's checks and times, phase 8f
+    python3 chip_smoke.py --moe     # phases 1-2, K8's and K9's checks and times,
+                                    # granite-moe served (8b), jamba-v0.1 served
+                                    # (8c), phase 8f
 
 Phases, in order; every check asserts and any failure exits non-zero:
 
   1. device   name, count, ``nvidia-smi`` name and power limit
   2. build    nvcc every kernel source in parallel; ptxas registers/spills,
               and the whole -Xptxas -v of netkv_score.cu, flash_decode.cu,
-              rwkv_scan.cu and moe_decode.cu
+              rwkv_scan.cu, moe_decode.cu and moe_route.cu
   3. kernels  each kernel against its plain PyTorch version at the shapes of
               the serving path, with times for the kernel, the plain version
               and the one PyTorch call that computes the same function;
@@ -46,7 +48,12 @@ Phases, in order; every check asserts and any failure exits non-zero:
               Jamba2-Mini's decode shape on routings of 2, 4, 8 and 16
               experts (timed beside the routed experts' bytes and the bmm
               path over all 16), NaN in the unrouted experts' weights
-              unread, and at ragged shapes in bf16 and f32
+              unread, and at ragged shapes in bf16 and f32; K8 at granite's
+              decode shape (T 4, d 1024, f 512, E 32, top 8) on K9's kept
+              gates at capacity 1 (timed beside the bmm path at capacity 1);
+              moe_route (K9) at granite's and Jamba2-Mini's decode widths, T
+              1-8, against its plain version (timed beside the plain version
+              and the routing chain of the bmm path), ties to the lower index
   4. match    the serving path on the card against the same path on the CPU
               (the plain versions), the smoke configs of qwen3-14b, rwkv6,
               granite-moe, arctic (MoE with a dense residual), phi3,
@@ -79,8 +86,10 @@ Phases, in order; every check asserts and any failure exits non-zero:
               launched 32 times a prefill, no attention kernel launched
   8. trace    phase 6 on the rwkv6-3b cluster
  8b. serve    granite-moe-1b-a400m at full width (MoE FFN: 32 experts, top 8)
-              on the same workload, then phase 6 on its cluster (the MoE
-              dispatch's kernels as a class of their own) and two prefills
+              on the same workload, moe_route (K9) and moe_decode (K8) each
+              launched 24 MoE layers x decode steps (capacity 1: slots drop),
+              then phase 6 on its cluster (the MoE dispatch's kernels, K9's
+              and K8's as classes of their own) and two prefills
               and two decode steps on the same inputs, bitwise equal; then
               phi3-medium-14b, internlm2-20b and smollm-135m at full width
               with 4 requests each, each cluster freed before the next
@@ -88,7 +97,8 @@ Phases, in order; every check asserts and any failure exits non-zero:
               whole periods; 32 layers' bf16 weights do not fit one card) on
               the same workload: each request ships its un-hit attention
               pages (8,192 B a token) and the whole Mamba state (8,028,160
-              B); flash_decode launched 2 x decode steps; then phase 6 on
+              B); flash_decode launched 2 x decode steps, moe_route (K9) and
+              moe_decode (K8) 8 MoE layers x decode steps; then phase 6 on
               its cluster, two prefills and two decode steps bitwise equal,
               and the Mamba mixer alone at full width (a 2048-token prefill
               and a 4-slot decode step: device and wall ms, runtime
@@ -97,9 +107,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
               after phase 8c's cluster is freed, on the same workload
               (lane 0 of a 4-lane decode engine active, lanes 1-3 idle as
               serve() leaves them): phase 5's checks, and moe_decode (K8)
-              launched 8 MoE layers x decode steps, where phase 8c's
-              capacity factor 1.25 launches it never; the distinct experts
-              each decode MoE layer routed to
+              and moe_route (K9) launched 8 MoE layers x decode steps, as in
+              phase 8c's capacity factor 1.25, where slots drop; the distinct
+              experts each decode MoE layer routed to
  8d. model    seamless-m4t-medium at full width, nothing cut (12 encoder and
               12 decoder layers, 977,758,208 parameters): encode 4 x 2048
               stub frames, prefill 4 x 256 tokens with that memory at
@@ -196,6 +206,7 @@ REPLACES = {
     "waterfill_fast": "src/repro/kernels/waterfill.py:182",
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:28",
     "moe_decode": "none: src/repro/models/moe.py:113 runs the experts as XLA einsums",
+    "moe_route": "none: src/repro/models/moe.py routes with XLA ops (softmax, top_k, cumsum)",
 }
 SOURCE = {
     "netkv_score_cohort": "src/repro_torch/csrc/netkv_score.cu",
@@ -206,9 +217,10 @@ SOURCE = {
     "waterfill_fast": "src/repro_torch/csrc/waterfill.cu",
     "rwkv_scan": "src/repro_torch/csrc/rwkv_scan.cu",
     "moe_decode": "src/repro_torch/csrc/moe_decode.cu",
+    "moe_route": "src/repro_torch/csrc/moe_route.cu",
 }
 KERNELS = ("netkv_score_cohort", "kv_pack", "kv_unpack", "flash_decode",
-           "waterfill_progressive", "waterfill_fast", "rwkv_scan", "moe_decode")
+           "waterfill_progressive", "waterfill_fast", "rwkv_scan", "moe_decode", "moe_route")
 # The FULL grid of benchmarks/exp11_scenario_sweep.py (defined here: that
 # module imports the JAX package).
 EXP11 = dict(schedulers=("cla", "netkv-static", "netkv-full"), chunks=(None, 256, 1024),
@@ -323,7 +335,7 @@ def phase_build() -> None:
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
-    for name in ("netkv_score", "flash_decode", "rwkv_scan", "moe_decode"):
+    for name in ("netkv_score", "flash_decode", "rwkv_scan", "moe_decode", "moe_route"):
         say(f"[build] -Xptxas -v of {name}.cu:")
         for line in logs[name]["ptxas"].splitlines():
             say(f"[build]   {line.rstrip()}")
@@ -928,6 +940,7 @@ def check_moe_decode(rows: dict) -> None:
         f"the output bitwise equal")
     del p, args, kept
     torch.cuda.empty_cache()
+    granite = check_moe_decode_granite(gen)
     for t, dd, ff, ee, kk in MOE_RAGGED:
         for dtype in (bf16, torch.float32):
             w = {n: (torch.randn(s, generator=gen, device="cuda") * s[-2] ** -0.5).to(dtype)
@@ -946,8 +959,140 @@ def check_moe_decode(rows: dict) -> None:
         "moe_decode", worst, served["ms"], served["plain_ms"], served["library_ms"],
         served["bound_ms"], served["bound_by"],
         shape=f"x ({served['tokens']}, {d}) bf16, E {e} of ({d}, {f}), top {k}, 4 experts routed",
-        timed={str(n): v for n, v in timed.items()},
+        timed={str(n): v for n, v in timed.items()}, granite=granite,
         library="the bmm path over all 16 experts (models/moe.py dispatch_bmm, cuBLAS)")
+
+
+# K8 at granite-moe-1b-a400m's decode shape: T 4 lanes, d 1024, f 512, E 32,
+# top 8, routed by K9 at granite's capacity of 1 slot an expert (so slots
+# drop), the lanes as serve() decodes them: one active, three idle alike.
+GRANITE_MOE = (4, 1024, 512, 32, 8)
+
+
+def check_moe_decode_granite(gen) -> dict:
+    """K8 on K9's kept gates against its plain version and against the bmm
+    path at capacity 1 (the same function: a dropped slot's term is 0 on
+    both), and both timed; returns the timings."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_decode import moe_decode
+    from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.models.moe import dispatch_bmm, route, slot_positions
+
+    bf16 = torch.bfloat16
+    t, d, f, e, k = GRANITE_MOE
+    p = {n: (torch.randn(s, generator=gen, device="cuda") * s[-2] ** -0.5).to(bf16)
+         for n, s in (("router", (d, e)), ("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                      ("w_down", (e, f, d)))}
+    x = torch.randn((2, d), generator=gen, device="cuda").to(bf16)[[0, 1, 1, 1]].contiguous()
+    experts, kept, _ = moe_route(x, p["router"], k, 1, True)
+    args = (x, experts, kept, p["w_gate"], p["w_up"], p["w_down"])
+    got = moe_decode(*args)
+    err, same = moe_error(got, ref.moe_decode_ref(*args))
+    _, gates, w_experts = route(x, p["router"], k, True)
+    pos, _ = slot_positions(w_experts, e)
+    bmm = dispatch_bmm(x, w_experts, gates, pos, 1, p)
+    lib_err = ((bmm.float() - got.float()).abs().max() / got.float().abs().max()).item()
+    # On a near tie of the k-th probability K9 and route may pick apart.
+    ensure(not torch.equal(experts, w_experts) or lib_err <= MOE_TOL[bf16][1],
+           f"K8 on kept gates against the bmm path: {lib_err}")
+    n_routed = int(experts.unique().numel())
+    k_ms = device_time_ms(lambda: moe_decode(*args), 100)
+    l_ms = device_time_ms(lambda: dispatch_bmm(x, w_experts, gates, pos, 1, p), 50)
+    b_ms, b_by = bound(n_routed * 3 * d * f * 2 + 2 * t * d * 2, 2 * 3 * t * k * d * f, bf16)
+    out = dict(tokens=t, experts_routed=n_routed, dropped=int((kept == 0).sum()), ms=k_ms,
+               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, max_err=err, equal_share=same,
+               bmm_path_err=lib_err)
+    say(f"[kernels] moe_decode at granite's decode (T {t}, d {d}, f {f}, E {e}, top {k}, cap "
+        f"1, {n_routed} experts routed, {out['dropped']} of {t * k} slots dropped): {k_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}); bmm path at capacity 1 {l_ms:.4f} ms; err "
+        f"{err:.3g}, {same:.4f} equal (the bmm path: {lib_err:.3g})")
+    return out
+
+
+# K9 at the decode widths of the served MoE models: (d, E, k, capacity
+# factor, renormalize).  Probabilities agree within f32 rounding (the kernel
+# sums the logits in another order than cuBLAS); experts are compared on rows
+# whose k-th and (k+1)-th probabilities lie further apart.
+ROUTE_SHAPES = {"granite": (1024, 32, 8, 1.25, True), "jamba2-mini": (4096, 16, 2, 8.0, False)}
+ROUTE_RTOL = 1e-5
+
+
+def check_moe_route(rows: dict) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.models.moe import MoEConfig, capacity, route, slot_positions
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    timed, worst, ties = {}, 0.0, []
+    for name, (d, e, k, cf, renorm) in ROUTE_SHAPES.items():
+        cfg = MoEConfig(n_experts=e, top_k=k, d_expert=8, capacity_factor=cf,
+                        renormalize=renorm)
+        router = (torch.randn((d, e), generator=gen, device="cuda") * d ** -0.5).to(bf16)
+        for t in range(1, 9):
+            x = torch.randn((t, d), generator=gen, device="cuda").to(bf16)
+            cap = capacity(t, cfg)
+            got = moe_route(x, router, k, cap, renorm)
+            want = ref.moe_route_ref(x, router, k, cap, renorm)
+            probs = torch.softmax(x.float() @ router.float(), -1).sort(-1, descending=True)[0]
+            apart = bool(((probs[:, k - 1] - probs[:, k]) > ROUTE_RTOL * probs[:, k - 1]).all())
+            if apart:
+                ensure(torch.equal(got[0], want[0]), f"moe_route {name} T {t}: experts")
+                for g, w in zip(got[1:], want[1:]):
+                    ensure(torch.allclose(g, w, rtol=ROUTE_RTOL, atol=0),
+                           f"moe_route {name} T {t}: gates or aux")
+                    # allclose at atol 0: a zero of the plain version is a zero here
+                    rel = (g - w).abs() / w.abs().clamp_min(torch.finfo(torch.float32).tiny)
+                    worst = max(worst, rel.max().item())
+            else:
+                ties.append(f"{name} T {t}")
+            ensure(all(torch.equal(a, b) for a, b in zip(got, moe_route(x, router, k, cap,
+                                                                         renorm))),
+                   f"moe_route {name} T {t}: two calls differ")
+            if t != 4:
+                continue
+
+            def chain():
+                probs, gates, experts = route(x, router, k, renorm)
+                pos, counts = slot_positions(experts, e)
+                aux = ref.moe_aux_loss(counts, probs, k)
+                return experts, torch.where(pos < cap, gates.reshape(-1), 0.0), aux
+
+            k_ms = device_time_ms(lambda: moe_route(x, router, k, cap, renorm), 200)
+            p_ms = device_time_ms(lambda: ref.moe_route_ref(x, router, k, cap, renorm), 50)
+            c_ms = device_time_ms(chain, 50)
+            # Bytes: the router, x and the outputs; operations: 2 d E a token.
+            b_ms, b_by = bound(d * e * 2 + t * d * 2 + t * k * 12 + 4, 2 * t * d * e, bf16)
+            timed[name] = dict(tokens=t, d=d, experts=e, top_k=k, cap=cap, ms=k_ms,
+                               plain_ms=p_ms, library_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
+                               experts_equal=apart)
+            say(f"[kernels] moe_route {name} (T {t}, d {d}, E {e}, top {k}, cap {cap}, bf16): "
+                f"{k_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); plain {p_ms:.4f} ms; the bmm "
+                f"path's routing chain {c_ms:.4f} ms")
+        say(f"[kernels] moe_route {name}: T 1-8 against the plain version, two calls bitwise")
+    n_cases = 8 * len(ROUTE_SHAPES)
+    ensure(len(ties) < n_cases, "moe_route: every case a near tie, no error measured")
+    say(f"[kernels] moe_route: gates and aux within {worst:.3g} of the plain version "
+        f"(relative, largest); {n_cases - len(ties)} of {n_cases} cases compared, near ties "
+        f"skipped: {', '.join(ties) or 'none'}")
+    # Planted ties: every router column equal gives experts 0..k-1 to every
+    # token; tokens past the capacity keep no gate.
+    d, e, k, _, renorm = ROUTE_SHAPES["granite"]
+    same = (torch.randn((d, 1), generator=gen, device="cuda") * d ** -0.5).to(bf16)
+    x = torch.randn((8, d), generator=gen, device="cuda").to(bf16)
+    experts, kept, _ = moe_route(x, same.expand(d, e).contiguous(), k, 2, renorm)
+    ensure(experts.tolist() == [list(range(k))] * 8 and bool((kept[2:] == 0).all())
+           and bool((kept[:2] > 0).all()), "moe_route: ties to the lower index")
+    say("[kernels] moe_route: equal router columns route every token to experts 0..k-1")
+    served = timed["granite"]
+    rows["moe_route"] = row(
+        "moe_route", worst, served["ms"], served["plain_ms"], served["library_ms"],
+        served["bound_ms"], served["bound_by"],
+        shape=f"x (4, 1024) bf16, router (1024, 32), top 8, cap {served['cap']}", timed=timed,
+        err_is="largest relative error of gates_kept and aux, both widths, T 1-8",
+        near_ties_skipped=ties,
+        library="the bmm path's routing chain: route, slot_positions, aux, kept gates "
+                "(models/moe.py, PyTorch ops)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1103,14 +1248,14 @@ def attn_launches(cfg, workload, results, reqs, steps) -> dict:
     decode instance skip their hit pages) and, for a hybrid, the whole fixed
     state of its Mamba layers; returns the launch counts the run must show
     (one pack and one unpack a K/V leaf of a request with pages to ship,
-    one flash_decode an attention layer a step, and one moe_decode a MoE
-    layer a step where ``moe.decodes_routed`` holds for the engine's lanes:
-    no slot can be dropped and K8 holds that many rows)."""
+    one flash_decode an attention layer a step, and one moe_route and one
+    moe_decode a MoE layer a step where ``moe.decodes_routed`` holds for the
+    engine's lanes: K8 holds that many rows and K9 takes the experts)."""
     from repro_torch.core.cost import B_TOK
     from repro_torch.kernels import build
     from repro_torch.kernels.moe_decode import held_rows
+    from repro_torch.kernels.moe_route import routes
     from repro_torch.models import state_bytes
-    from repro_torch.models.moe import capacity
 
     page_bytes = B_TOK * cfg.n_kv_heads * cfg.d_head * 2
     prompt_pages = workload["prompt_len"] // B_TOK
@@ -1135,11 +1280,12 @@ def attn_launches(cfg, workload, results, reqs, steps) -> dict:
     ensure(any(r.transfer_bytes < full_bytes for r in results), "no repeat prefix hit")
     lanes = workload["n_slots"]
     n_moe = cfg.n_periods * sum(f in ("moe", "moe_res") for f in cfg.ffn_pattern)
-    routed = n_moe > 0 and (capacity(lanes, cfg.moe) >= lanes
+    routed = n_moe > 0 and (routes(cfg.moe.n_experts, cfg.moe.top_k)
                             and lanes <= held_rows(cfg.d_model, cfg.compute_dtype))
     return dict.fromkeys(build.LAUNCHES, 0) | {
         "flash_decode": cfg.n_attn_layers * steps, "kv_pack": kv_leaves * shipping,
-        "kv_unpack": kv_leaves * shipping, "moe_decode": n_moe * steps if routed else 0}
+        "kv_unpack": kv_leaves * shipping, "moe_decode": n_moe * steps if routed else 0,
+        "moe_route": n_moe * steps if routed else 0}
 
 
 # ---------------------------------------------------------- phases 6, 8
@@ -1153,6 +1299,10 @@ def kernel_class(name: str, moe: bool = False, fine: bool = False) -> str:
         return "rwkv"
     if "flash_decode" in low:
         return "flash_decode"
+    if "moe_route" in low:
+        return "moe_route"
+    if any(k in low for k in ("moe_gate_up", "moe_down", "moe_combine")):
+        return "moe_decode"
     if "kv_pack" in low or "kv_unpack" in low:
         return "kv_pack"
     if "waterfill" in low:
@@ -1740,23 +1890,24 @@ def serve_moe() -> dict:
     """Serve the published Jamba block through :func:`phase_serve` (whose
     launch counts hold K8 to one launch a MoE layer a decode step) and
     report the distinct experts each decode MoE layer routed to: an eager
-    step's routing as it is made, a graphed step's read from the captured
-    routing after each replay.  Returns the serve's launch counts."""
+    step's routing (K9's experts) as it is made, a graphed step's read from
+    the captured routing after each replay.  Returns the serve's launch
+    counts."""
     from collections import Counter
 
     from repro_torch.configs.jamba_v01_52b import published
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import FULL
-    from repro_torch.models import decode_graph, moe
+    from repro_torch.models import decode_graph
 
     cfg = published(full_config(JAMBA))
     n_moe = cfg.n_periods * sum(f == "moe" for f in cfg.ffn_pattern)
     seen, pending, captured = [], [], {}
-    real = moe.route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay
+    real = ops.moe_route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay
 
     def route(xf, *a):
-        out = real[0](xf, *a)
-        if xf.shape[0] == FULL["n_slots"]:      # a decode step; a prefill has 2048 rows
-            (pending if torch.cuda.is_current_stream_capturing() else seen).append(out[2])
+        out = real[0](xf, *a)     # K9 runs at decode only
+        (pending if torch.cuda.is_current_stream_capturing() else seen).append(out[0])
         return out
 
     def capture(self, top):
@@ -1771,20 +1922,22 @@ def serve_moe() -> dict:
 
     say(f"[serve] the published Jamba block (no drop, capacity factor "
         f"{cfg.moe.capacity_factor:g}) at {cfg.n_layers} layers, {n_moe} of them MoE")
-    moe.route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay = (
+    ops.moe_route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay = (
         route, capture, replay)
     try:
         launches, cluster, _ = phase_serve(cfg)
     finally:
-        moe.route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay = real
+        ops.moe_route, decode_graph.DecodeGraphs._capture, torch.cuda.CUDAGraph.replay = real
     steps = sum(w["decode_steps"] for w in cluster.walls)
     ensure(len(seen) == n_moe * steps, f"{len(seen)} decode MoE layers routed, {steps} steps")
-    ensure(launches["moe_decode"] == n_moe * steps, ("K8 launches", launches["moe_decode"]))
+    for name in ("moe_decode", "moe_route"):
+        ensure(launches[name] == n_moe * steps, (name, launches[name]))
     distinct = [int(e.unique().numel()) for e in seen]
     hist = dict(sorted(Counter(distinct).items()))
     say(f"[moe] published jamba served, lane 0 active of {FULL['n_slots']}: distinct experts a "
         f"decode MoE layer over {steps} steps x {n_moe} layers: {hist}, mean "
-        f"{sum(distinct) / len(distinct):.3f}; K8 {launches['moe_decode']} launches; graphs "
+        f"{sum(distinct) / len(distinct):.3f}; K8 {launches['moe_decode']}, K9 "
+        f"{launches['moe_route']} launches; graphs "
         f"{[d.graph_stats for d in cluster.decode]}")
     del cluster
     return launches
@@ -2716,10 +2869,22 @@ def main(argv=None) -> int:
         lap("dry run")
         return 0
     if (sys.argv[1:] if argv is None else argv) == ["--moe"]:
-        # This slice alone: K8's checks and times, phase 8f.  No kernels
-        # line and no ok line.
+        # This slice alone: K8's and K9's checks and times, granite-moe served
+        # and traced (phase 8b's), jamba-v0.1 served (phase 8c's serve), phase
+        # 8f.  No kernels line and no ok line.
         check_moe_decode({})
+        check_moe_route({})
         lap("kernels")
+        for arch in ("granite-moe-1b-a400m", JAMBA):
+            more, cluster, prompts = phase_serve(full_config(arch))
+            if arch != JAMBA:
+                phase_trace(cluster, prompts)
+                check_bitwise_steps(cluster, prompts)
+            say(f"[moe] {arch}: K9 {more['moe_route']}, K8 {more['moe_decode']} launches, "
+                f"{sum(w['decode_steps'] for w in cluster.walls)} decode steps")
+            del cluster
+            free()
+            lap(f"serve {arch}")
         serve_moe()
         free()
         lap("serve published jamba")
@@ -2745,6 +2910,7 @@ def main(argv=None) -> int:
     check_netkv_score(rows)
     check_rwkv_scan(rows)
     check_moe_decode(rows)
+    check_moe_route(rows)
     lap("kernels")
     for arch in ("qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m", "arctic-480b",
                  *DENSE_SERVES, JAMBA, INTERNVL2):
@@ -2785,12 +2951,12 @@ def main(argv=None) -> int:
             time_mamba(cluster.model)
         del cluster
         free()
-        for k in ("kv_pack", "kv_unpack", "flash_decode"):
+        for k in ("kv_pack", "kv_unpack", "flash_decode", "moe_decode", "moe_route"):
             launches[k] += more[k]
         lap(f"serve {arch}")
     more = serve_moe()
     free()
-    for k in ("kv_pack", "kv_unpack", "flash_decode", "moe_decode"):
+    for k in ("kv_pack", "kv_unpack", "flash_decode", "moe_decode", "moe_route"):
         launches[k] += more[k]
     lap("serve published jamba")
     launches["flash_decode"] += phase_encdec()

@@ -14,6 +14,9 @@
                       per (batch, head) over the whole of T (csrc/rwkv_scan.cu)
   moe_decode          a decode step's MoE FFN over the experts its tokens
                       route to, reading no other expert (csrc/moe_decode.cu)
+  moe_route           a decode step's MoE routing and capacity rule: top k,
+                      kept gates and aux loss in one launch of one
+                      8-block cluster (csrc/moe_route.cu)
 
 ``ops`` routes CUDA tensors to the kernels and CPU tensors to ``ref``;
 ``build`` compiles the sources with nvcc at first use and counts launches.

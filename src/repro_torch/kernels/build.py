@@ -5,7 +5,10 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
 under ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, and loaded with ``ctypes``.  No PyTorch header is
 compiled, so a build takes seconds.  :func:`build_all` starts one ``nvcc``
-per source, all at once.
+per source, all at once; the first :func:`library` call that finds its
+library missing builds every missing one that way, so a path that uses
+several kernels (a MoE decode: K9 and K8) waits for one build, not one after
+another.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else, so a run can show that its path went through the kernels.
@@ -41,11 +44,12 @@ SOURCES = {
     "waterfill": ["--fmad=false"],
     "rwkv_scan": [],
     "moe_decode": [],
+    "moe_route": [],
 }
 
 LAUNCHES = {"netkv_score_cohort": 0, "kv_pack": 0, "kv_unpack": 0,
             "flash_decode": 0, "waterfill_progressive": 0, "waterfill_fast": 0,
-            "rwkv_scan": 0, "moe_decode": 0}
+            "rwkv_scan": 0, "moe_decode": 0, "moe_route": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -134,13 +138,14 @@ def build_all(names=None) -> dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use with
+    every other library not built yet, all at once."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             path = _lib_path(name)
             if not path.exists():
-                build_all([name])
+                build_all()
             lib = ctypes.CDLL(str(path))
             lib.repro_error_string.restype = ctypes.c_char_p
             lib.repro_error_string.argtypes = [ctypes.c_int]

@@ -86,8 +86,9 @@ def moe_decode(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
                w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """The MoE FFN's combined output (T, d) in x's dtype: each token's k
     slots through their experts' SwiGLU, weighed by their gates and added in
-    k order, rounded as ``models.moe``'s ``bmm`` path rounds.  No slot is
-    dropped: the caller decides that none would be.  ``experts`` must lie in
+    k order, rounded as ``models.moe``'s ``bmm`` path rounds.  A slot the
+    capacity rule drops comes with gate 0 (K9's ``gates_kept``), so its term
+    is 0 as on the ``bmm`` path.  ``experts`` must lie in
     [0, E), a token's k distinct (``route`` gives them so): nothing is read
     back to check."""
     if x.dtype not in DTYPE_CODE:

@@ -115,11 +115,23 @@ def waterfill_fast(caps: torch.Tensor, active: torch.Tensor,
     return ref.waterfill_rates_fast_ref(caps, active, nhops)
 
 
+def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int, cap: int,
+              renormalize: bool):
+    """K9: a decode step's routing and capacity rule, ``(experts (T, k),
+    gates_kept (T, k), aux)``, a dropped slot's gate 0."""
+    _no_grad("moe_route", x, router)
+    if _on_card(x):
+        from .moe_route import moe_route as kernel
+
+        return kernel(x, router, top_k, cap, renormalize)
+    return ref.moe_route_ref(x, router, top_k, cap, renormalize)
+
+
 def moe_decode(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
                w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """K8: a decode step's MoE FFN (T, d) over the experts its T tokens
-    route to (``experts``, ``gates`` (T, k) from ``models.moe.route``), no
-    slot dropped."""
+    route to (``experts``, ``gates`` (T, k) from K9, a dropped slot's gate
+    0)."""
     _no_grad("moe_decode", x, w_gate, w_up, w_down)
     if _on_card(x):
         from .moe_decode import moe_decode as kernel

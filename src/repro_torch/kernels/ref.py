@@ -4,7 +4,10 @@ Each computes what its CUDA kernel computes, with ordinary tensor ops: the
 CPU tests hold them against the JAX package, ``ops`` runs them for tensors
 on the CPU, and ``chip_smoke.py`` holds each kernel against its plain
 version on the card.  Nothing on the main path calls them when the tensors
-lie on a CUDA device.
+lie on a CUDA device, but for the MoE routing and its aux loss
+(:func:`route_ref`, :func:`moe_aux_loss`): ``models/moe.py``'s ``bmm`` path
+(prefill, training) routes with them, so that K9's twin and that path share
+one routing.
 """
 
 from __future__ import annotations
@@ -330,3 +333,42 @@ def moe_decode_ref(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
     for j in range(1, k):
         out = rnd(out + terms[:, j])
     return out.to(x.dtype)
+
+
+def route_ref(xf: torch.Tensor, router: torch.Tensor, top_k: int, renormalize: bool = True):
+    """xf (T, d); router (d, E) -> (probs (T, E), gates (T, k), experts (T,
+    k)) in f32 from the up-cast operands.  Experts are in descending
+    probability, the lower index first on a tie (``lax.top_k``'s order),
+    which a stable sort gives.  The gates are the k probabilities over their
+    sum, or, without ``renormalize``, the probabilities themselves."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[:, :top_k], experts[:, :top_k]
+    if renormalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates, experts
+
+
+def moe_aux_loss(counts: torch.Tensor, probs: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The load-balancing loss of T tokens, f32: sum_e count_e / (T k) *
+    mean_t probs[t, e] * E, from each expert's count of slots (E,) and the
+    probabilities (T, E)."""
+    t, e = probs.shape
+    return (counts.float() / (t * top_k) * probs.mean(dim=0)).sum() * e
+
+
+def moe_route_ref(x: torch.Tensor, router: torch.Tensor, top_k: int, cap: int,
+                  renormalize: bool = True):
+    """x (T, d); router (d, E) -> (experts (T, k) int64, gates_kept (T, k)
+    f32, aux () f32): the top k of softmax(x router) in f32 from the up-cast
+    operands, in descending probability, the lower index first on a tie (a
+    stable sort's order); their gates over their sum, or as they are
+    without ``renormalize``; a slot's gate set to 0 where ``cap`` earlier
+    tokens already route to its expert (a token's k experts are distinct, so
+    that count is its position in the token-major order); the load-balancing
+    loss (:func:`moe_aux_loss`)."""
+    probs, gates, experts = route_ref(x, router, top_k, renormalize)
+    member = torch.zeros(probs.shape, dtype=torch.int32, device=x.device).scatter_(1, experts, 1)
+    pos = (torch.cumsum(member, dim=0) - member).gather(1, experts)
+    aux = moe_aux_loss(member.sum(dim=0), probs, top_k)
+    return experts, torch.where(pos < cap, gates, 0.0), aux

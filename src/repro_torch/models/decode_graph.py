@@ -42,8 +42,9 @@ recorded for them.  A replayed step records ``decode.graph`` (a = the
 bucket's top, b = 1 where the step captured the graph) round the staging
 copy and the replay, and a ``k4.launch`` stamp for each K4 call of the
 graph just before the replay call that launches them.
-``build.LAUNCHES["flash_decode"]`` and ``["moe_decode"]`` (K8) grow by the
-graph's calls at each replay, as they grow by an eager step's.
+``build.LAUNCHES["flash_decode"]``, ``["moe_decode"]`` (K8) and
+``["moe_route"]`` (K9) grow by the graph's calls at each replay, as they grow
+by an eager step's.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from .sharding import current_mesh, current_rules
 BUCKET_FLOOR = 256                        # the smallest bucket's top
 GRAPHED_BLOCKS = ("attn", "mamba")
 GRAPHED_FFNS = ("dense", "moe", "moe_res")
-COUNTED = ("flash_decode", "moe_decode")  # kernels whose launches a replay counts
+COUNTED = ("flash_decode", "moe_decode", "moe_route")  # kernels a replay counts
 
 _POOL = None     # the memory pool every graph of the process takes its intermediates from
 _STREAM = None   # the side stream every capture runs on

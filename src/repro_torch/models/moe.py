@@ -18,12 +18,16 @@ token's k terms one after another in the output dtype, the order (and, in
 bf16, the rounding after each add) of the reference's scatter-add on the
 CPU.
 
-A decode step where no slot can be dropped (one token a row, ``cap >= T``,
-T within the rows K8 holds) runs K8 (``kernels.ops.moe_decode``) in place of
-the dispatch, the ``bmm`` over all E experts and the gather: it reads only
-the routed experts' weights and rounds where the ``bmm`` path rounds.  Every
-prefill, and every step where a slot may be dropped, keeps the ``bmm`` path,
-so the drop order stays the reference's (:func:`decodes_routed`).
+A decode step (one token a row, T within the rows K8 holds, E within
+K9's) runs K9 (``kernels.ops.moe_route``: routing, slot positions, the aux
+loss and the capacity rule in one launch) and K8 (``kernels.ops.moe_decode``)
+in place of the routing chain, the dispatch, the ``bmm`` over all E experts
+and the gather, at any capacity: K9 gives each dropped slot gate 0, so its
+term is 0 as on the ``bmm`` path, and its positions are the token-major
+ones, so the drop order stays the reference's.  K8 reads only the routed
+experts' weights and rounds where the ``bmm`` path rounds.  Every prefill
+(and dispatch chunk), training and mesh run keeps the ``bmm`` path
+(:func:`decodes_routed`).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.moe_decode import held_rows
+from ..kernels.moe_route import routes
+from ..kernels.ref import moe_aux_loss, route_ref as route
 from .common import ConfigOptions, InitSpec, swiglu
 from .sharding import current_mesh, merge_dims
 
@@ -98,20 +104,6 @@ def capacity(t: int, cfg: MoEConfig) -> int:
     return max(int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
 
 
-def route(xf: torch.Tensor, router: torch.Tensor, top_k: int, renormalize: bool = True):
-    """(probs (T, E), gates (T, k), experts (T, k)) in f32 from the router
-    up-cast to f32.  Experts are in descending probability, the lower index
-    first on a tie (``lax.top_k``'s order), which a stable sort gives.  The
-    gates are the k probabilities over their sum, or, without
-    ``renormalize``, the probabilities themselves."""
-    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
-    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, experts = gates[:, :top_k], experts[:, :top_k]
-    if renormalize:
-        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    return probs, gates, experts
-
-
 def slot_positions(experts: torch.Tensor, n_experts: int):
     """(pos, counts): each (token, k) slot's position in its expert's
     buffer, the count of earlier slots of the token-major flat order with
@@ -125,15 +117,16 @@ def slot_positions(experts: torch.Tensor, n_experts: int):
 
 
 def decodes_routed(x: torch.Tensor, params: dict, cfg: MoEConfig) -> bool:
-    """Whether :func:`moe_ffn` takes K8 for its input x (B, S, d): a
+    """Whether :func:`moe_ffn` takes K9 and K8 for its input x (B, S, d): a
     decode-shaped input (S = 1; a prefill's dispatch chunk is no decode) of
-    T = B tokens within the rows K8 holds at width d, no slot that can be
-    dropped (capacity >= T: a token's k experts are distinct, so no expert
-    gets more than T slots), plain tensors on the card or the CPU outside
-    mesh rules, and no gradient wanted (K8 has no backward)."""
+    T = B tokens within the rows K8 holds at width d, E and k that K9 takes,
+    plain tensors on the card or the CPU outside mesh rules, and no gradient
+    wanted (neither kernel has a backward).  Slots may drop: K9 gives a
+    dropped slot gate 0, and with a token's k experts distinct no expert
+    gets more than T slots, which K8 holds."""
     b, s, d = x.shape
-    leaves = (x, params["w_gate"], params["w_up"], params["w_down"])
-    return (s == 1 and b <= held_rows(d, x.dtype) and capacity(b, cfg) >= b
+    leaves = (x, params["router"], params["w_gate"], params["w_up"], params["w_down"])
+    return (s == 1 and b <= held_rows(d, x.dtype) and routes(cfg.n_experts, cfg.top_k)
             and current_mesh() is None
             and all(t.device.type in ("cpu", "cuda") for t in leaves)
             and not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)))
@@ -141,25 +134,22 @@ def decodes_routed(x: torch.Tensor, params: dict, cfg: MoEConfig) -> bool:
 
 def _moe_ffn_once(x: torch.Tensor, params: dict, cfg: MoEConfig,
                   routed: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """One dispatch group: K8 where ``routed`` (:func:`decodes_routed`),
-    else the capacity dispatch and the bmm over every expert."""
+    """One dispatch group: K9 and K8 where ``routed`` (:func:`decodes_routed`),
+    else the routing, the capacity dispatch and the bmm over every expert."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(t, cfg)
     xf = x.reshape(t, d)
-    probs, gates, experts = route(xf, params["router"], k, cfg.renormalize)
-
-    pos, counts = slot_positions(experts, e)
-    # Load-balancing aux loss.
-    frac_tokens = counts.float() / (t * k)
-    aux = (frac_tokens * probs.mean(dim=0)).sum() * e
-
     if routed:
-        out = ops.moe_decode(xf, experts, gates, params["w_gate"], params["w_up"],
+        experts, gates_kept, aux = ops.moe_route(xf, params["router"], k, cap, cfg.renormalize)
+        out = ops.moe_decode(xf, experts, gates_kept, params["w_gate"], params["w_up"],
                              params["w_down"])
-    else:
-        out = dispatch_bmm(xf, experts, gates, pos, cap, params)
+        return out.reshape(b, s, d), aux
+    probs, gates, experts = route(xf, params["router"], k, cfg.renormalize)
+    pos, counts = slot_positions(experts, e)
+    aux = moe_aux_loss(counts, probs, k)
+    out = dispatch_bmm(xf, experts, gates, pos, cap, params)
     return out.reshape(b, s, d), aux
 
 
